@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false and
+run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
+
+Tolerances: fp32 outputs 1e-5 (same arithmetic, other summation order);
+bf16 outputs one bf16 rounding step, 2^-7 relative to the largest value.
+"""
+import numpy as np
+import pytest
+import torch
+
+from latentfusion_tpu_torch import transforms, modules, zoo
+from latentfusion_tpu_torch.camera import Camera
+from latentfusion_tpu_torch.observation import Observation
+from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
+from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+FP32_TOL = 1e-5
+BF16_TOL = 2.0 ** -7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,n,k", [(1, 8, (16, 16, 16)), (3, 6, (5, 7, 9)),
+                                    (4, 4, (8, 8, 8))])
+def test_k1_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, k):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vol = torch.randn(nv, 40, 16, 16, 16, generator=g, device=cuda).to(dtype)
+    grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
+    before = fused_sample.LAUNCHES
+    out = fused_sample.grid_sample_3d_fused(vol, grid, padding_mode, dtype)
+    torch.cuda.synchronize()
+    assert fused_sample.LAUNCHES == before + 1
+    ref = fused_sample.grid_sample_3d_plain(vol, grid, padding_mode, dtype)
+    assert out.shape == ref.shape == (n, 40, *k) and out.dtype == dtype
+    assert _err(out, ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33)])
+def test_k2_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    before = lrelu_pnorm.LAUNCHES
+    y, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+    torch.cuda.synchronize()
+    assert lrelu_pnorm.LAUNCHES == before + 1
+    y_ref, inv_ref = lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)
+    assert y.dtype == dtype and inv.shape == inv_ref.shape
+    assert _err(y, y_ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
+    assert _err(inv, inv_ref) <= FP32_TOL
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_tensors_that_require_grad(cuda):
+    """Neither kernel has a backward pass yet: a tensor that needs a
+    gradient is refused rather than cut out of the graph."""
+    vol = torch.zeros(1, 4, 4, 4, 4, device=cuda, requires_grad=True)
+    grid = torch.zeros(2, 3, 3, 3, 3, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_sample.grid_sample_3d_fused(vol, grid)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lrelu_pnorm.lrelu_pixel_norm_fwd(vol, 0.2, 1e-8)
+    with torch.no_grad():
+        assert fused_sample.grid_sample_3d_fused(vol, grid).shape == (2, 4, 3, 3, 3)
+
+
+@pytest.mark.cuda
+def test_tiny_slice_kernels_match_torch_backends(cuda):
+    """The tiny build + render goes through both kernels and agrees with
+    the same path on the plain versions (5e-4, networks)."""
+    gen = torch.Generator().manual_seed(0)
+    model = LatentFusionModel(zoo.tiny_sculptor(device=cuda, generator=gen), None,
+                              zoo.tiny_fuser(device=cuda, generator=gen), None,
+                              zoo.tiny_photographer(device=cuda, generator=gen),
+                              None, camera_dist=1.5, device=cuda)
+    rng = np.random.RandomState(0)
+    K = np.tile(np.array([[64, 0, 32], [0, 64, 24], [0, 0, 1]], np.float32), (3, 1, 1))
+    ext = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    ext[:, :3, 3] = [0.02, -0.01, 1.5]
+    obs = Observation(rng.rand(3, 3, 48, 64), 1.5 + 0.1 * rng.rand(3, 1, 48, 64),
+                      np.ones((3, 1, 48, 64)), Camera(K, ext, width=64, height=48,
+                                                      device=cuda))
+    cams = Camera(K, ext, width=64, height=48, device=cuda).zoom(None, 16, 1.5)
+    k1, k2 = fused_sample.LAUNCHES, lrelu_pnorm.LAUNCHES
+    z = model.build_latent_object(obs)
+    y, _ = model.render_latent_object(z, cams)
+    assert fused_sample.LAUNCHES > k1 and lrelu_pnorm.LAUNCHES > k2
+    with transforms.volume_sample_backend("torch"), modules.lrelu_pnorm_backend("torch"):
+        z_ref = model.build_latent_object(obs)
+        y_ref, _ = model.render_latent_object(z_ref, cams)
+    assert _err(z, z_ref) <= 5e-4
+    for key in ("depth", "mask"):
+        assert _err(y[key], y_ref[key]) <= 5e-4

@@ -1,0 +1,98 @@
+"""The port stands alone: no file of ``latentfusion_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, flax or the JAX package, and no entry point
+runs on the CPU unless asked to."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from latentfusion_tpu_torch import resolve_device, zoo
+from latentfusion_tpu_torch.camera import Camera
+from latentfusion_tpu_torch.observation import Observation
+from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
+from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu"}
+
+
+def _port_files():
+    pkg = ROOT / "latentfusion_tpu_torch"
+    files = sorted(f for f in pkg.rglob("*.py")
+                   if "_build" not in f.relative_to(pkg).parts)
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
+           for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _camera_args():
+    K = np.array([[64.0, 0, 32], [0, 64.0, 24], [0, 0, 1]], np.float32)
+    ext = np.eye(4, dtype=np.float32)
+    ext[2, 3] = 1.5
+    return K, ext
+
+
+def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    K, ext = _camera_args()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        Camera(K, ext, width=64, height=48)
+    with pytest.raises(RuntimeError):
+        Observation.from_dict({"color": np.zeros((1, 3, 48, 64), np.float32),
+                               "depth": np.zeros((1, 48, 64), np.float32),
+                               "mask": np.zeros((1, 48, 64), np.float32),
+                               "intrinsic": K, "extrinsic": ext})
+    for name in ("tiny_sculptor", "tiny_fuser", "tiny_photographer",
+                 "demo_sculptor", "flagship_fuser"):
+        with pytest.raises(RuntimeError):
+            getattr(zoo, name)()
+    parts = [zoo.tiny_sculptor(device="cpu"), None, zoo.tiny_fuser(device="cpu"),
+             None, zoo.tiny_photographer(device="cpu"), None]
+    with pytest.raises(RuntimeError):
+        LatentFusionModel(*parts, camera_dist=1.5)
+    with pytest.raises(RuntimeError):
+        LatentFusionModel.from_checkpoint(tmp_path / "unread.pth")
+
+
+def test_entry_points_run_on_cpu_when_asked(no_gpu):
+    K, ext = _camera_args()
+    cam = Camera(K, ext, width=64, height=48, device="cpu")
+    assert cam.device.type == "cpu"
+    model = LatentFusionModel(zoo.tiny_sculptor(device="cpu"), None,
+                              zoo.tiny_fuser(device="cpu"), None,
+                              zoo.tiny_photographer(device="cpu"), None,
+                              camera_dist=1.5, device="cpu")
+    assert next(model.sculptor.parameters()).device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    vol = torch.zeros(1, 4, 2, 2, 2, device="meta")
+    grid = torch.zeros(1, 2, 2, 2, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_sample.grid_sample_3d_fused(vol, grid)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lrelu_pnorm.lrelu_pixel_norm_fwd(torch.zeros(2, 4, 3, device="meta"), 0.2, 1e-8)

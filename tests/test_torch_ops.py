@@ -1,0 +1,358 @@
+"""The port's 3D math, camera, 2D resampling, volume transforms and the
+plain versions of its two kernels, held against the JAX package on the same
+numpy inputs (CPU).
+
+Tolerances (fp32): 1e-5 for ops, 2e-4 for geometry (camera matrices, crop
+boxes, pixel coordinates, which pass through trig and divisions of
+quantities near 600).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from latentfusion_tpu import three as jthree
+from latentfusion_tpu import modules as jmodules
+from latentfusion_tpu import transforms as jtransforms
+from latentfusion_tpu.camera import Camera as JCamera
+from latentfusion_tpu.observation import Observation as JObservation
+from latentfusion_tpu.ops import affine_resample as jaffine
+from latentfusion_tpu.ops.interpolate import interpolate as j_interpolate
+from latentfusion_tpu.ops.grid_sample import grid_sample_2d as j_grid_sample_2d
+from latentfusion_tpu.ops.pallas_fused_sample import grid_sample_3d_fused as j_fused
+from latentfusion_tpu.ops.pallas_lrelu_pnorm import lrelu_pixel_norm_pallas
+from latentfusion_tpu.three import quaternion as jquat
+
+from latentfusion_tpu_torch import three as tthree
+from latentfusion_tpu_torch import transforms as ttransforms
+from latentfusion_tpu_torch.camera import Camera as TCamera
+from latentfusion_tpu_torch.observation import Observation as TObservation
+from latentfusion_tpu_torch.ops import affine_resample as taffine
+from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
+from latentfusion_tpu_torch.ops.grid_sample import grid_sample_2d as t_grid_sample_2d
+from latentfusion_tpu_torch.ops.interpolate import interpolate as t_interpolate
+from latentfusion_tpu_torch.three import quaternion as tquat
+
+OPS_TOL = 1e-5
+GEOM_TOL = 2e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def close(a, b, tol, rtol=0.0):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol, rtol=rtol)
+
+
+def unit_quats(rng, n):
+    q = rng.randn(n, 4).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def camera_arrays(rng, n, z=1.5, f=64.0, width=64, height=48):
+    K = np.tile(np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]],
+                         np.float32)[None], (n, 1, 1))
+    t = np.concatenate([rng.uniform(-0.05, 0.05, (n, 2)),
+                        rng.uniform(z - 0.1, z + 0.1, (n, 1))], 1).astype(np.float32)
+    ext = np.array(jthree.to_extrinsic_matrix(jnp.asarray(t),
+                                                jnp.asarray(unit_quats(rng, n))))
+    return K, ext
+
+
+def both_cameras(rng, n, width=64, height=48, **kw):
+    K, ext = camera_arrays(rng, n, width=width, height=height, **kw)
+    return (JCamera(K, ext, width=width, height=height),
+            TCamera(K, ext, width=width, height=height, device="cpu"))
+
+
+# ------------------------------------------------------------------ three
+def test_quaternion_functions_match(rng):
+    q = unit_quats(rng, 16)
+    q2 = unit_quats(rng, 16)
+    tq, tq2 = torch.from_numpy(q), torch.from_numpy(q2)
+    close(tquat.quat_to_mat(tq), jquat.quat_to_mat(q), OPS_TOL)
+    mats = np.array(jquat.quat_to_mat(q))
+    close(tquat.mat_to_quat(torch.from_numpy(mats)), jquat.mat_to_quat(mats), OPS_TOL)
+    close(tquat.qmul(tq, tq2), jquat.qmul(q, q2), OPS_TOL)
+    close(tquat.qlog(tq), jquat.qlog(q), OPS_TOL)
+    v = rng.randn(16, 3).astype(np.float32) * 0.5
+    close(tquat.qexp(torch.from_numpy(v)), jquat.qexp(v), OPS_TOL)
+
+
+def test_rigid_functions_match(rng):
+    q = unit_quats(rng, 8)
+    t = rng.randn(8, 3).astype(np.float32)
+    ext_j = jthree.to_extrinsic_matrix(t, q)
+    ext_t = tthree.to_extrinsic_matrix(torch.from_numpy(t), torch.from_numpy(q))
+    close(ext_t, ext_j, OPS_TOL)
+    K = rng.randn(8, 3, 3).astype(np.float32)
+    close(tthree.intrinsic_to_3x4(torch.from_numpy(K)), jthree.intrinsic_to_3x4(K), 0)
+
+
+def test_random_quaternions_seeded_unit_and_uniform():
+    """PRNG streams differ between frameworks, so the sampler is held to its
+    properties: unit norm, reproducible from a seed, and a uniform rotation
+    distribution (E[w^2] = 1/4 for each component of a Haar quaternion)."""
+    g = torch.Generator().manual_seed(7)
+    q = tquat.random(4096, g)
+    q2 = tquat.random(4096, torch.Generator().manual_seed(7))
+    assert q.shape == (4096, 4)
+    close(q, q2, 0)
+    close(torch.linalg.norm(q, dim=1), np.ones(4096), 1e-5)
+    close((q ** 2).mean(0), np.full(4, 0.25), 0.02)
+
+
+# ----------------------------------------------------------------- camera
+def test_camera_pose_and_matrices_match(rng):
+    jc, tc = both_cameras(rng, 6)
+    close(tc.log_quaternion, jc.log_quaternion, GEOM_TOL)
+    close(tc.translation, jc.translation, GEOM_TOL)
+    close(tc.extrinsic, jc.extrinsic, GEOM_TOL)
+    close(tc.obj_to_cam, jc.obj_to_cam, GEOM_TOL)
+    close(tc.cam_to_obj, jc.cam_to_obj, GEOM_TOL)
+    close(tc.position, jc.position, GEOM_TOL)
+    close(tc.znear, jc.znear, GEOM_TOL)
+    close(tc.zfar, jc.zfar, GEOM_TOL)
+    close(tc.viewport, jc.viewport, 0)
+
+
+def test_camera_edits_and_containers_match(rng):
+    """translate keeps the JAX package's sign fix: the new camera centre is
+    position + offset."""
+    jc, tc = both_cameras(rng, 4)
+    jc2, tc2 = both_cameras(rng, 2)
+    off = np.array([0.1, -0.2, 0.3], np.float32)
+    close(tc.translate(off).translation, jc.translate(off).translation, GEOM_TOL)
+    close(tc.translate(off).position, tc.position + torch.from_numpy(off), GEOM_TOL)
+    close(TCamera.cat([tc, tc2]).extrinsic, JCamera.cat([jc, jc2]).extrinsic,
+          GEOM_TOL)
+    close(tc.repeat(3).translation, jc.repeat(3).translation, GEOM_TOL)
+    assert len(TCamera.cat([tc, tc2])) == 6 and len(tc.repeat(3)) == 12
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_camera_zoom_and_uncrop_match(rng, mode):
+    jc, tc = both_cameras(rng, 3)
+    image = rng.rand(3, 2, 48, 64).astype(np.float32)
+    zj, jcz = jc.zoom(image, 16, 1.5, scale_mode=mode)
+    zt, tcz = tc.zoom(torch.from_numpy(image), 16, 1.5, scale_mode=mode)
+    close(tcz.viewport, jcz.viewport, GEOM_TOL)
+    close(zt, zj, OPS_TOL)
+    uj, jcu = jcz.uncrop(zj, scale_mode=mode)
+    ut, tcu = tcz.uncrop(zt, scale_mode=mode)
+    close(tcu.viewport, jcu.viewport, 0)
+    close(ut, uj, OPS_TOL)
+    close(tc.zoom(None, 16, 1.5).viewport, jc.zoom(None, 16, 1.5).viewport, GEOM_TOL)
+
+
+def test_camera_coords_and_depth_window_match(rng):
+    jc, tc = both_cameras(rng, 2)
+    jcz, tcz = jc.zoom(None, 16, 1.5), tc.zoom(None, 16, 1.5)
+    for a, b in zip(tcz.camera_coords(8), jcz.camera_coords(8)):
+        close(a, b, GEOM_TOL)
+    depth = (1.5 + 0.3 * rng.randn(2, 1, 16, 16)).astype(np.float32)
+    nd_t = tcz.normalize_depth(torch.from_numpy(depth))
+    close(nd_t, jcz.normalize_depth(depth), OPS_TOL)
+    close(tcz.denormalize_depth(nd_t), jcz.denormalize_depth(np.asarray(nd_t)),
+          OPS_TOL)
+
+
+# ------------------------------------------------------------- 2D resample
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_separable_resample_matches(rng, mode, padding_mode):
+    image = rng.rand(2, 3, 12, 10).astype(np.float32)
+    src_y = (rng.rand(2, 7) * 14 - 2).astype(np.float32)
+    src_x = (rng.rand(2, 9) * 12 - 2).astype(np.float32)
+    out_t = taffine.separable_resample_2d(torch.from_numpy(image),
+                                          torch.from_numpy(src_y),
+                                          torch.from_numpy(src_x), mode,
+                                          padding_mode)
+    close(out_t, jaffine.separable_resample_2d(image, src_y, src_x, mode,
+                                               padding_mode), OPS_TOL)
+
+
+def test_bbox_source_coords_truncate_corners(rng):
+    boxes = (rng.rand(4, 4) * 100 - 20).astype(np.float32)
+    for trunc in (True, False):
+        ys_t, xs_t = taffine.bbox_source_coords(torch.from_numpy(boxes), 16, trunc)
+        ys_j, xs_j = jaffine.bbox_source_coords(boxes, 16, trunc)
+        close(ys_t, ys_j, GEOM_TOL)
+        close(xs_t, xs_j, GEOM_TOL)
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_grid_sample_2d_matches(rng, mode, padding_mode):
+    image = rng.randn(2, 3, 9, 11).astype(np.float32)
+    grid = (rng.rand(2, 5, 6, 2) * 2.4 - 1.2).astype(np.float32)
+    out_t = t_grid_sample_2d(torch.from_numpy(image), torch.from_numpy(grid),
+                             mode, padding_mode)
+    close(out_t, j_grid_sample_2d(image, grid, mode, padding_mode), OPS_TOL)
+
+
+@pytest.mark.parametrize("shape,scale,mode", [
+    ((2, 3, 8, 8), 2.0, "nearest"), ((2, 3, 8, 8), 0.5, "nearest"),
+    ((2, 3, 8, 8), 2.0, "bilinear"), ((2, 3, 8, 8), 0.5, "bilinear"),
+    ((1, 2, 4, 6, 8), 2.0, "trilinear"), ((1, 2, 4, 6, 8), 0.5, "nearest"),
+])
+def test_interpolate_matches(rng, shape, scale, mode):
+    x = rng.randn(*shape).astype(np.float32)
+    close(t_interpolate(torch.from_numpy(x), scale_factor=scale, mode=mode),
+          j_interpolate(x, scale_factor=scale, mode=mode), OPS_TOL)
+
+
+# ------------------------------------------------------------ observation
+def test_observation_preprocessing_matches(rng):
+    K, ext = camera_arrays(rng, 3)
+    color = rng.rand(3, 3, 48, 64).astype(np.float32)
+    depth = (1.5 + 0.05 * rng.rand(3, 1, 48, 64)).astype(np.float32)
+    mask = (rng.rand(3, 1, 48, 64) > 0.5).astype(np.float32)
+    jo = JObservation(color, depth, mask, JCamera(K, ext, width=64, height=48))
+    to = TObservation(color, depth, mask,
+                      TCamera(K, ext, width=64, height=48, device="cpu"))
+    jo = jo.zoom(1.5, 16).prepare().normalize()
+    to = to.zoom(1.5, 16).prepare().normalize()
+    assert all(to.meta[k] for k in ("is_zoomed", "is_prepared", "is_normalized"))
+    close(to.color, jo.color, OPS_TOL)
+    close(to.mask, jo.mask, 0)
+    close(to.depth, jo.depth, GEOM_TOL)
+    d = {"color": color, "depth": depth[:, 0], "mask": mask[:, 0],
+         "intrinsic": K, "extrinsic": ext}
+    close(TObservation.from_dict(d, device="cpu").depth,
+          JObservation.from_dict(d).depth, 0)
+    both = TObservation.collate([to, to])
+    assert len(both) == 6 and both.meta["is_normalized"]
+    close(both.color[3:], to.color, 0)
+
+
+# ------------------------------------------------------- volume transforms
+@pytest.mark.parametrize("backend", ["hopper", "torch"])
+def test_volume_transforms_match(rng, backend):
+    """camera_to_object / object_to_camera vs JAX (gather backend): the
+    grid conventions (half-range z, border padding) and a shared latent."""
+    jc, tc = both_cameras(rng, 3)
+    jc, tc = jc.zoom(None, 16, 1.5), tc.zoom(None, 16, 1.5)
+    cam_vol = rng.randn(3, 4, 8, 8, 8).astype(np.float32)
+    obj_vol = rng.randn(1, 4, 8, 8, 8).astype(np.float32)
+    prev = jtransforms.get_volume_sample_backend()
+    jtransforms.set_volume_sample_backend("gather")
+    try:
+        j_c2o = jtransforms.camera_to_object(cam_vol, jc)
+        j_o2c = jtransforms.object_to_camera(obj_vol, jc)
+    finally:
+        jtransforms.set_volume_sample_backend(prev)
+    with ttransforms.volume_sample_backend(backend):
+        t_c2o = ttransforms.camera_to_object(torch.from_numpy(cam_vol), tc)
+        t_o2c = ttransforms.object_to_camera(torch.from_numpy(obj_vol), tc)
+    close(t_c2o, j_c2o, GEOM_TOL)
+    close(t_o2c, j_o2c, GEOM_TOL)
+
+
+# ------------------------------------------------------- K1 plain version
+def _k1_inputs(rng, nv, n, c=16, s=(8, 8, 8), k=(8, 8, 8), spread=2.4):
+    vol = rng.randn(nv, c, *s).astype(np.float32)
+    grid = (rng.rand(n, *k, 3) * spread - spread / 2).astype(np.float32)
+    return vol, grid
+
+
+def _k1_plain(vol, grid, padding_mode):
+    return fused_sample.grid_sample_3d_plain(torch.from_numpy(vol),
+                                             torch.from_numpy(grid), padding_mode)
+
+
+def _jax_gather(vol, grid, padding_mode):
+    prev = jtransforms.get_volume_sample_backend()
+    jtransforms.set_volume_sample_backend("gather")
+    try:
+        return jtransforms._volume_sample(jnp.asarray(vol), jnp.asarray(grid),
+                                          padding_mode)
+    finally:
+        jtransforms.set_volume_sample_backend(prev)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("case", ["batched", "k_padding", "shared_batch1",
+                                  "shared_groups"])
+def test_k1_plain_matches_pallas_interpret_and_gather(rng, padding_mode, case):
+    """K1's plain version vs the Pallas kernel (interpret mode) and the
+    gather backend, over the cases of tests/test_fused_sample.py: both
+    paddings, K not a multiple of the tile, a shared volume with batch 1
+    and with groups (NV | N)."""
+    nv, n, k = {"batched": (2, 2, (8, 8, 8)), "k_padding": (1, 1, (5, 7, 9)),
+                "shared_batch1": (1, 4, (8, 8, 8)),
+                "shared_groups": (2, 6, (4, 4, 4))}[case]
+    vol, grid = _k1_inputs(rng, nv, n, k=k)
+    out = _k1_plain(vol, grid, padding_mode)
+    assert out.shape == (n, 16, *k)
+    close(out, j_fused(jnp.asarray(vol), jnp.asarray(grid), padding_mode=padding_mode),
+          OPS_TOL)
+    close(out, _jax_gather(vol, grid, padding_mode), OPS_TOL)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_k1_plain_non_cubic_matches_torch_grid_sample(rng, padding_mode):
+    """Axis order on a (D, H, W) = (4, 6, 5) volume, against
+    F.grid_sample and the JAX gather backend."""
+    vol, grid = _k1_inputs(rng, 2, 2, c=3, s=(4, 6, 5), k=(3, 5, 7))
+    out = _k1_plain(vol, grid, padding_mode)
+    ref = torch.nn.functional.grid_sample(
+        torch.from_numpy(vol), torch.from_numpy(grid), mode="bilinear",
+        padding_mode=padding_mode, align_corners=False)
+    close(out, ref, OPS_TOL)
+    close(out, _jax_gather(vol, grid, padding_mode), OPS_TOL)
+
+
+def test_k1_plain_bf16_rounds_once(rng):
+    vol, grid = _k1_inputs(rng, 1, 2)
+    v = torch.from_numpy(vol).bfloat16()
+    out = fused_sample.grid_sample_3d_plain(v, torch.from_numpy(grid), "border",
+                                            out_dtype=torch.bfloat16)
+    ref = fused_sample.grid_sample_3d_plain(v.float(), torch.from_numpy(grid),
+                                            "border").bfloat16()
+    assert out.dtype == torch.bfloat16
+    close(out.float(), ref.float(), 0)
+
+
+def test_k1_wrapper_on_cpu_is_the_plain_version(rng):
+    vol, grid = _k1_inputs(rng, 1, 3)
+    before = fused_sample.LAUNCHES
+    out = fused_sample.grid_sample_3d_fused(torch.from_numpy(vol),
+                                            torch.from_numpy(grid), "zeros")
+    close(out, _k1_plain(vol, grid, "zeros"), 0)
+    assert fused_sample.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fused_sample.grid_sample_3d_fused(torch.from_numpy(vol[:, :1].repeat(2, 0)),
+                                          torch.from_numpy(grid), "zeros")
+
+
+# ------------------------------------------------------- K2 plain version
+@pytest.mark.parametrize("shape", [(2, 196, 4, 4, 4), (4, 128, 8, 8), (3, 64, 16)])
+def test_k2_plain_matches_pallas_interpret_and_jnp(rng, shape):
+    """K2's plain version (channel dim 1) vs the Pallas kernel in interpret
+    mode (channels last) and the jnp version, C=196 included."""
+    x = rng.randn(*shape).astype(np.float32)
+    y, inv = lrelu_pnorm.lrelu_pixel_norm_plain(torch.from_numpy(x), 0.2, 1e-8)
+    x_cl = np.moveaxis(x, 1, -1)
+    y_pallas = np.moveaxis(np.asarray(
+        lrelu_pixel_norm_pallas(jnp.asarray(x_cl), 0.2, 1e-8, True)), -1, 1)
+    y_jnp = jmodules._lrelu_pixel_norm_jnp(jnp.asarray(x), 0.2, 1e-8, 1)
+    close(y, y_pallas, OPS_TOL)
+    close(y, y_jnp, OPS_TOL)
+    u = np.where(x >= 0, x, 0.2 * x)
+    close(inv, 1.0 / np.sqrt((u * u).mean(1) + 1e-8), OPS_TOL, rtol=1e-5)
+
+
+def test_k2_wrapper_on_cpu_is_the_plain_version(rng):
+    x = torch.from_numpy(rng.randn(2, 196, 3, 3).astype(np.float32))
+    before = lrelu_pnorm.LAUNCHES
+    y, _ = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+    close(y, lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)[0], 0)
+    assert lrelu_pnorm.LAUNCHES == before
+    yb, _ = lrelu_pnorm.lrelu_pixel_norm_fwd(x.bfloat16(), 0.2, 1e-8)
+    assert yb.dtype == torch.bfloat16
