@@ -5,11 +5,12 @@
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
 
-1. device: the card's name and power limit; build both CUDA kernels with
-   nvcc (one process per source, started together).
+1. device: the card's name and power limit; build the four CUDA kernels
+   (K1-fwd and K1-bwd-grid in csrc/fused_sample.cu, K2-fwd and K2-bwd in
+   csrc/lrelu_pnorm.cu) with nvcc, one process per source, started together.
 2. kernels: each kernel against its plain PyTorch version at the shapes of
-   the build + render path, with kernel, plain and library times (CUDA
-   events, warm-up excluded), then one ``kernels`` JSON line.
+   the build + render path and of the refinement backward, with kernel,
+   plain and library times (CUDA events, warm-up excluded).
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -18,19 +19,32 @@ line after it ends:
    render of the first object is profiled: device time by kernel.
 4. demo: the same at the demo family with the learned weights of
    artifacts/encoder_distill/encoder_distill.npz.
+5. pose, flagship: the latent of views 0-14 of refs_o0, then the pose of
+   view 15 (known) by CEM (configs/cross_entropy_quick.toml), then gradient
+   refinement (configs/adam_quick.toml); the launch counters must show all
+   four kernels on this path. One refinement step must agree with the
+   plain versions (see gradient_check). One refinement step is profiled:
+   device time by kernel.
+6. pose accuracy, demo family with the learned weights: the latent of 16
+   shaded views of the analytic ellipsoid, then CEM + refinement on 8
+   seeded target poses; ADD-S within a tenth of the diameter on at least 7.
+   One refinement step must agree with the plain versions.
 
-The last line is ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero, as does a machine without a GPU. TF32 is off throughout, so
-kernel and plain paths compare in fp32.
+Then one ``kernels`` JSON line (launches from phase 5's pose path). The
+last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero,
+as does a machine without a GPU. TF32 is off throughout, so kernel and
+plain paths compare in fp32.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -38,13 +52,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 FRAMES = ROOT / "artifacts" / "serving" / "frames"
 DISTILL = ROOT / "artifacts" / "encoder_distill"
+CONFIGS = ROOT / "configs"
 N_HYPOTHESES = 128
+N_REFINE = 8  # adam_quick's hypotheses
 CAMERA_DIST = 5.78  # the committed objects are unit-sized, seen from ~5.7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 FP32_TOL = 1e-5  # kernel vs plain, fp32: same arithmetic, other sum order
 BF16_TOL = 2.0 ** -7  # bf16 output: one rounding step, relative
 NET_TOL = 5e-4  # a network's output on the kernels vs on the plain versions
+# K2-fwd vs its plain version in fp32: about 1 ulp per element (6e-8), 4e-7
+# at most relative to the largest value (phase 2). The gradient's noise
+# floor perturbs the activations at both sizes, rounded up.
+FLOOR_EPS = (1e-7, 4e-7)
+FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
+ORACLE_AXES = (0.21, 0.36, 0.5)  # tools/train_encoder_distill.py's ellipsoid
+ORACLE_DIAMETER = 2 * max(ORACLE_AXES)
 
 
 def say(*parts) -> None:
@@ -178,6 +201,88 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
     return records
 
 
+def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
+    """The backward kernels against their plain versions at the shapes of
+    the flagship refinement backward (8 hypotheses); returns their timing
+    records."""
+    from latentfusion_tpu_torch import transforms
+    from latentfusion_tpu_torch import zoo
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    records = {}
+
+    # K1-bwd-grid on the decode grid of 8 hypotheses of object o0 (one
+    # shared latent, 256 channels, 16^3 samples).
+    obs = load_views(FRAMES / "refs_o0.npz", dev)
+    cams = hypothesis_cameras(obs, zoo.FLAGSHIP_INPUT_SIZE, CAMERA_DIST, g)[:N_REFINE]
+    grid = transforms.object_to_camera_grid(cams, 16)
+    del obs
+    n, c = grid.shape[0], 256
+    vol = torch.randn(1, c, 16, 16, 16, generator=g, device=dev)
+    gout = torch.randn(n, c, 16, 16, 16, generator=g, device=dev)
+    for padding in ("border", "zeros"):
+        out = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+        ref = fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        say(f"  K1-bwd-grid NV=1 N={n} C={c} 16^3 {padding} float32: rel err "
+            f"{err:.3g} (tol {FP32_TOL:.3g})")
+        if not err <= FP32_TOL:
+            fail(f"K1-bwd-grid {padding} disagrees with plain")
+        if padding == "border":
+            ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding))
+            plain = time_ms(lambda: fused_sample.grid_sample_3d_bwd_grid_plain(
+                vol, grid, gout, padding), iters=3)
+            vol_n = vol.expand(n, -1, -1, -1, -1).contiguous()
+            lib = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+                gout, vol_n, grid, 0, 1, False, [False, True]))
+            nbytes = (gout.numel() + vol.numel() + 2 * grid.numel()) * 4
+            # Per sample and channel: 8 corner loads into 3 x 8 multiply-adds
+            # and 3 more for g; ~60 operations per sample for the taps.
+            flops = 2.0 * 27 * gout.numel() + 60.0 * grid[..., 0].numel()
+            b, by = bound_ms(nbytes, flops)
+            records["K1b"] = dict(
+                name="fused_sample_bwd_grid", route="cuda",
+                source="latentfusion_tpu_torch/csrc/fused_sample.cu",
+                replaces="latentfusion_tpu/ops/pallas_fused_sample.py:352",
+                max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=lib)
+            del vol_n
+    del vol, gout, grid, out, ref
+
+    # K2-bwd at the refinement backward's shapes: the decoder's C=196 block,
+    # a camera block (3D), the decoder's last block (the largest).
+    shapes = ((N_REFINE, 196, 32, 32), (N_REFINE, 256, 16, 16, 16),
+              (N_REFINE, 64, 128, 128))
+    for shape in shapes:
+        x = torch.randn(*shape, generator=g, device=dev)
+        gy = torch.randn(*shape, generator=g, device=dev)
+        _, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+        dx = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
+        ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
+        torch.cuda.synchronize()
+        err = rel_err(dx, ref)
+        say(f"  K2-bwd {shape} float32: rel err {err:.3g} (tol {FP32_TOL:.3g})")
+        if not err <= FP32_TOL:
+            fail(f"K2-bwd {shape} disagrees with plain")
+        if shape == shapes[-1]:
+            ms = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2))
+            plain = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(
+                x, inv, gy, 0.2), iters=3)
+            nbytes = 3 * x.numel() * 4 + inv.numel() * 4
+            b, by = bound_ms(nbytes, 8.0 * x.numel())
+            records["K2b"] = dict(
+                name="lrelu_pnorm_bwd", route="cuda",
+                source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
+                replaces="latentfusion_tpu/ops/pallas_lrelu_pnorm.py:104",
+                max_abs_err=float((dx - ref).abs().max()), ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None)
+        del x, gy, inv, dx, ref
+    torch.cuda.empty_cache()
+    return records
+
+
 def load_views(path: Path, device):
     """A committed reference object as an Observation (16 views)."""
     from latentfusion_tpu_torch.camera import Camera
@@ -276,6 +381,225 @@ def drive_slice(label, model, objects, kernels, seed, profile):
     return counts
 
 
+def reset_counters(kernels) -> None:
+    fused_sample, lrelu_pnorm = kernels
+    fused_sample.LAUNCHES = fused_sample.BWD_GRID_LAUNCHES = 0
+    lrelu_pnorm.LAUNCHES = lrelu_pnorm.BWD_LAUNCHES = 0
+
+
+def read_counters(kernels) -> dict:
+    fused_sample, lrelu_pnorm = kernels
+    return {"K1": fused_sample.LAUNCHES, "K1b": fused_sample.BWD_GRID_LAUNCHES,
+            "K2": lrelu_pnorm.LAUNCHES, "K2b": lrelu_pnorm.BWD_LAUNCHES}
+
+
+def views(obs, start: int, stop: int):
+    """Views start..stop-1 of an Observation as their own Observation."""
+    from latentfusion_tpu_torch.observation import Observation
+
+    return Observation(obs.color[start:stop], obs.depth[start:stop],
+                       obs.mask[start:stop], obs.camera[start:stop])
+
+
+def profile_step(fn) -> None:
+    """Print the device time of one call of ``fn`` by kernel (torch.profiler)."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    say(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+
+
+def phase_pose_flagship(model, kernels, seed):
+    """CEM then refinement for view 15 of refs_o0 from the latent of views
+    0-14; returns the launch counts of the pose path by kernel."""
+    from latentfusion_tpu_torch.pose import estimation, metrics
+
+    obs = load_views(FRAMES / "refs_o0.npz", model.device)
+    target = views(obs, 15, 16)
+    z = model.build_latent_object(views(obs, 0, 15))
+    del obs
+    coarse = estimation.load_from_config(CONFIGS / "cross_entropy_quick.toml", model)
+    fine = estimation.load_from_config(CONFIGS / "adam_quick.toml", model,
+                                       track_stats=True)
+
+    def estimate():
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        t0 = time.perf_counter()
+        reset_counters(kernels)
+        cams = coarse.estimate(z, target, generator=g)
+        torch.cuda.synchronize()
+        cem_s = time.perf_counter() - t0
+        cem_counts = read_counters(kernels)
+        reset_counters(kernels)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        best, stats = fine.estimate(z, target, camera=cams[:fine.num_samples])
+        end.record()
+        torch.cuda.synchronize()
+        refine_ms = start.elapsed_time(end)
+        whole_s = time.perf_counter() - t0
+        return cams, best, stats, cem_s, cem_counts, read_counters(kernels), refine_ms, whole_s
+
+    # The first estimate is counted and checked; the second is timed.
+    cams, best, stats, _, cem_counts, refine_counts, _, _ = estimate()
+    counts = {k: cem_counts[k] + refine_counts[k] for k in cem_counts}
+    if not all(v > 0 for v in counts.values()):
+        fail(f"pose: a kernel was not launched on the pose path: {counts}")
+    steps = stats["num_steps"]
+    history = stats["loss_history"][:steps]
+    if not (bool(torch.isfinite(history).all()) and len(best) == fine.ranking_size
+            and bool(torch.isfinite(best.translation).all())):
+        fail("pose: the refinement's losses or poses are not finite")
+    _, _, stats2, cem_s, _, _, refine_ms, whole_s = estimate()
+    steps2 = stats2["num_steps"]
+    m_coarse = metrics.camera_metrics(target.camera, cams[0], None, 1.0)
+    m_refined = metrics.camera_metrics(target.camera, best[0], None, 1.0)
+    say(f"  pose flagship o0 view 15: CEM {coarse.num_iters} iterations of "
+        f"{coarse.num_samples} in {cem_s:.3f} s; refinement {steps2} steps "
+        f"(first run {steps}) at {refine_ms / steps2:.2f} ms per step "
+        f"({N_REFINE} hypotheses); whole estimate {whole_s:.3f} s; loss "
+        f"{float(history[0]):.5f} -> {float(history.min()):.5f}; seeded "
+        f"weights, so the pose is not expected to be right: coarse "
+        f"{json.dumps(m_coarse)}, refined {json.dumps(m_refined)}")
+    say(f"  launches, CEM {json.dumps(cem_counts)} (per iteration "
+        f"{json.dumps({k: v / coarse.num_iters for k, v in cem_counts.items()})}), "
+        f"refinement {json.dumps(refine_counts)} (per step "
+        f"{json.dumps({k: v / steps for k, v in refine_counts.items()})})")
+
+    zcams = cams[:N_REFINE].zoom(None, model.input_size, model.camera_dist)
+    gradient_check("flagship", fine, z, target, zcams, kernels)
+    say("  one refinement step (8 hypotheses, forward and backward), device time by kernel:")
+    profile_step(lambda: fine.loss_and_grads(z, target, zcams))
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def convs_perturbed(photographer, eps: float, seed: int):
+    """Inside, every convolution of ``photographer`` multiplies its output by
+    (1 + eps N(0, 1)) (forward hooks). Each K2 takes a convolution's output
+    and normalizes it, so its output moves by about eps relative too."""
+    from latentfusion_tpu_torch.modules.equalized import EqualizedConv
+
+    gens = {}
+
+    def hook(_module, _inputs, y):
+        g = gens.setdefault(y.device, torch.Generator(device=y.device).manual_seed(seed))
+        return y * (1 + eps * torch.randn(y.shape, generator=g, device=y.device))
+
+    handles = [m.register_forward_hook(hook) for m in photographer.modules()
+               if isinstance(m, EqualizedConv)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def gradient_check(label, fine, z, target, zcams, kernels) -> None:
+    """One refinement step on the kernels against the same step on the plain
+    versions (``transforms`` and ``modules`` on their "torch" backends); each
+    camera gradient (log_quaternion, translation, viewport) is compared
+    relative to the largest magnitude of the reference's.
+
+    Gated at NET_TOL: the step's loss, and its camera gradient with the
+    forward shared (the kernels' forward, the plain backward formulas in
+    place of K1-bwd-grid and K2-bwd). Gated at FLOOR_FACTOR times its noise
+    floor: the camera gradient end to end. PixelNorm lifts near-zero
+    activations to unit scale and the depth terms pass a hard mask gate, so
+    that gradient jumps between discrete values with the activations' last
+    bits. Its floor is the largest of 6 draws of how far the plain gradient
+    moves when every convolution's output is multiplied by (1 + eps N(0, 1)),
+    3 draws for each eps of FLOOR_EPS."""
+    from latentfusion_tpu_torch import modules, transforms
+
+    fused_sample, lrelu_pnorm = kernels
+
+    def worst(g, ref):
+        return max(float((g[k] - ref[k]).abs().max())
+                   / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+
+    loss_k, grads_k = fine.loss_and_grads(z, target, zcams)
+    _, grads_k2 = fine.loss_and_grads(z, target, zcams)
+    with mock.patch.object(fused_sample, "grid_sample_3d_bwd_grid",
+                           fused_sample.grid_sample_3d_bwd_grid_plain), \
+            mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd",
+                              lrelu_pnorm.lrelu_pixel_norm_bwd_plain):
+        _, grads_s = fine.loss_and_grads(z, target, zcams)
+    floors = []
+    with transforms.volume_sample_backend("torch"), \
+            modules.lrelu_pnorm_backend("torch"):
+        loss_p, grads_p = fine.loss_and_grads(z, target, zcams)
+        for eps in FLOOR_EPS:
+            for draw in range(3):
+                with convs_perturbed(fine.model.photographer, eps, draw):
+                    floors.append(worst(fine.loss_and_grads(z, target, zcams)[1], grads_p))
+    loss_err, shared_err = rel_err(loss_k, loss_p), worst(grads_k, grads_s)
+    grad_err, grad_tol = worst(grads_k, grads_p), FLOOR_FACTOR * max(floors)
+    say(f"  {label} refinement step, kernels vs plain: loss rel err {loss_err:.3g}, "
+        f"camera gradient with the forward shared {shared_err:.3g} (tol {NET_TOL}); "
+        f"end to end {grad_err:.3g}, noise floor (plain, convolutions perturbed by "
+        f"{FLOOR_EPS}) {json.dumps(floors)}, tol {FLOOR_FACTOR:g} x largest = "
+        f"{grad_tol:.3g}; kernels repeated {worst(grads_k2, grads_k):.3g}")
+    if not max(loss_err, shared_err) <= NET_TOL:
+        fail(f"{label}: the refinement step on the kernels disagrees with the plain versions")
+    if not grad_err <= grad_tol:
+        fail(f"{label}: the camera gradient on the kernels is beyond its noise floor")
+
+
+def phase_pose_accuracy(model, kernels, seed):
+    """The oracle rig of tools/train_encoder_distill.py: ADD-S of CEM +
+    refinement on 8 targets with the learned demo weights; the reference
+    views and targets are drawn from ``seed``."""
+    from latentfusion_tpu_torch import testing, zoo
+    from latentfusion_tpu_torch.pose import estimation, metrics
+    from latentfusion_tpu_torch.three import orientation, quaternion
+
+    dev = model.device
+    oracle = testing.EllipsoidOracleModel(zoo.DEMO_INPUT_SIZE, zoo.DEMO_CAMERA_DIST,
+                                          ORACLE_AXES, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ref_cams = zoo.random_view_cameras(16, g, zoo.DEMO_CAMERA_DIST, device=dev)
+    gt_cams = [testing.make_camera(1, z=zoo.DEMO_CAMERA_DIST, f=615.0, width=640,
+                                   height=480, quats=quaternion.random(1, g),
+                                   device=dev) for _ in range(8)]
+    z = model.build_latent_object(oracle.make_observation(ref_cams, shaded=True))
+    points = (orientation.evenly_distributed_points(512, device=dev)
+              * torch.tensor(ORACLE_AXES, device=dev))
+    coarse = estimation.CrossEntropyPoseEstimator(
+        model=model, num_gmm_components=6, sample_flipped=True, num_samples=128,
+        num_iters=10, num_elites=48, learning_rate=0.75,
+        loss_weights={"depth": 1.0}, ranking_size=16)
+    fine = estimation.GradientPoseEstimator(
+        model=model, ranking_size=8, loss_weights={"depth": 1.0, "ov_depth": 0.3},
+        learning_rate=0.01, num_samples=16, num_iters=150, converge_threshold=1e-6,
+        converge_patience=25, optimizer="adam", track_stats=True)
+    hits = 0
+    t0 = time.perf_counter()
+    for i, gt in enumerate(gt_cams):
+        target = oracle.make_observation(gt)
+        cams = coarse.estimate(z, target, generator=g)
+        best, stats = fine.estimate(z, target, camera=cams[:16])
+        if i == 0:
+            gradient_check("demo", fine, z, target,
+                           cams[:16].zoom(None, model.input_size, model.camera_dist),
+                           kernels)
+        mc = metrics.camera_metrics(gt, cams[0], points, 1.0)
+        mr = metrics.camera_metrics(gt, best[0], points, 1.0)
+        ok = mr["add_s"] < 0.1 * ORACLE_DIAMETER
+        hits += ok
+        say(f"  target {i}: coarse add_s {mc['add_s']:.4f} rot {mc['rotation_dist']:.3f}; "
+            f"refined ({stats['num_steps']} steps) add_s {mr['add_s']:.4f} rot "
+            f"{mr['rotation_dist']:.3f} trans {mr['translation_dist']:.4f}; 0.1d {ok}")
+    say(f"  ADD-S within 0.1 diameter: {hits}/8 = {hits / 8:.3f} "
+        f"({time.perf_counter() - t0:.1f} s for 8 targets)")
+    if hits < 7:
+        fail(f"pose accuracy: {hits}/8 targets within 0.1 diameter, fewer than 7")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -299,42 +623,51 @@ def main() -> None:
     objects = [(f"o{i}", FRAMES / f"refs_o{i}.npz") for i in (0, 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/4: device and kernel build")
+    say("== phase 1/6: device and kernel build")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
 
-    say("== phase 2/4: kernels against their plain versions")
+    say("== phase 2/6: kernels against their plain versions")
     records = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
+    records.update(phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed))
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
 
-    say(f"== phase 3/4: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/6: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
-    model = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
-                              zoo.flagship_fuser(generator=gen), None,
-                              zoo.flagship_photographer(generator=gen), None,
-                              camera_dist=CAMERA_DIST)
-    counts = drive_slice("flagship", model, objects, kernels, args.seed,
+    flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
+                                 zoo.flagship_fuser(generator=gen), None,
+                                 zoo.flagship_photographer(generator=gen), None,
+                                 camera_dist=CAMERA_DIST)
+    counts = drive_slice("flagship", flagship, objects, kernels, args.seed,
                          profile=True)
-    del model
-    torch.cuda.empty_cache()
     say(f"   flagship launches per object: {json.dumps(counts)}")
 
-    say(f"== phase 4/4: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/6: demo family, learned weights, render of {N_HYPOTHESES}")
     state = split_state_dict(from_jax_params(load_params_npz(
         DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
-    model = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
-                              zoo.demo_fuser(), state["fuser"],
-                              zoo.demo_photographer(), state["photographer"],
-                              camera_dist=zoo.DEMO_CAMERA_DIST)
-    demo_counts = drive_slice("demo", model, objects, kernels, args.seed,
+    demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
+                             zoo.demo_fuser(), state["fuser"],
+                             zoo.demo_photographer(), state["photographer"],
+                             camera_dist=zoo.DEMO_CAMERA_DIST)
+    demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
+
+    say("== phase 5/6: flagship pose of view 15 of o0: CEM "
+        "(cross_entropy_quick) then refinement (adam_quick)")
+    pose_counts = phase_pose_flagship(flagship, kernels, args.seed)
+    say(f"   pose path launches: {json.dumps(pose_counts)}")
+    del flagship
+    torch.cuda.empty_cache()
+
+    say("== phase 6/6: pose accuracy, demo family, learned weights, 8 oracle targets")
+    phase_pose_accuracy(demo, kernels, args.seed)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
     for key in records:
-        records[key]["launches"] = counts["o0"][key]
-    say(json.dumps({"kernels": [records["K1"], records["K2"]]}))
+        records[key]["launches"] = pose_counts[key]
+    say(json.dumps({"kernels": [records[k] for k in ("K1", "K1b", "K2", "K2b")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,6 +18,8 @@ from .three import quaternion as quat
 
 
 def _as_tensor(value, device) -> torch.Tensor:
+    """fp32 tensor on ``device``. A tensor that already is one is returned
+    as it is, so a pose leaf that requires a gradient stays in the graph."""
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
@@ -84,6 +86,22 @@ class Camera:
             translation=self.translation if translation is None else translation,
             device=self.device)
 
+    _REPLACE_FIELDS = ("intrinsic", "viewport", "log_quaternion",
+                       "translation", "z_span", "width", "height")
+
+    def replace(self, **params) -> "Camera":
+        """A camera with the given fields swapped in, as they are: nothing
+        is converted, so tensors that require a gradient stay in the graph."""
+        unknown = set(params) - set(self._REPLACE_FIELDS)
+        if unknown:
+            # e.g. replace(extrinsic=...): pose lives in log_quaternion and
+            # translation.
+            raise TypeError(f"Camera.replace: unknown fields {sorted(unknown)}")
+        out = object.__new__(Camera)
+        for name in self._REPLACE_FIELDS:
+            setattr(out, name, params.get(name, getattr(self, name)))
+        return out
+
     # -------------------------------------------------------------- properties
     @property
     def device(self) -> torch.device:
@@ -120,6 +138,10 @@ class Camera:
     def cam_to_obj(self):
         return (self.rotation_matrix.transpose(2, 1)
                 @ three.translation_to_4x4(-self.translation))
+
+    @property
+    def obj_to_image(self):
+        return self.intrinsic @ self.obj_to_cam
 
     @property
     def position(self):
@@ -160,6 +182,13 @@ class Camera:
         return self.translation[:, 2] + self.z_span
 
     # ------------------------------------------------------------- pose edits
+    def with_quaternion(self, q) -> "Camera":
+        return self.replace(log_quaternion=quat.qlog(q)[:, 1:])
+
+    def rotate(self, q) -> "Camera":
+        """Right-multiply the rotation by the quaternions ``q`` (B, 4)."""
+        return self.with_quaternion(quat.qmul(self.quaternion, q))
+
     def translate(self, offset) -> "Camera":
         """Move the camera *center* by ``offset`` in object space.
 
@@ -230,6 +259,20 @@ class Camera:
         return separable_resample_2d(image, src_y, src_x, mode=scale_mode), camera_new
 
     # ---------------------------------------------------------------- coords
+    def pixel_coords_uv(self, out_size):
+        """Viewport meshgrid (u, v) in pixel space, each (B, h, w)."""
+        if isinstance(out_size, int):
+            out_size = (out_size, out_size)
+        v_pixel, u_pixel = torch.meshgrid(
+            torch.linspace(0.0, 1.0, out_size[0], device=self.device),
+            torch.linspace(0.0, 1.0, out_size[1], device=self.device),
+            indexing="ij")
+        u_pixel = (u_pixel[None] * self.viewport_width.reshape(-1, 1, 1)
+                   + self.viewport[:, 0].reshape(-1, 1, 1))
+        v_pixel = (v_pixel[None] * self.viewport_height.reshape(-1, 1, 1)
+                   + self.viewport[:, 1].reshape(-1, 1, 1))
+        return u_pixel, v_pixel
+
     def pixel_coords_uvz(self, out_size):
         """Viewport-frustum meshgrid in pixel space. The z axis covers
         ``[znear, znear + z_span]``, half of the depth window, as trained
@@ -275,6 +318,15 @@ class Camera:
                    log_quaternion=torch.cat([c.log_quaternion for c in cameras]),
                    translation=torch.cat([c.translation for c in cameras]),
                    device=first.device)
+
+    def __getitem__(self, item) -> "Camera":
+        if isinstance(item, int):
+            item = slice(item, item + 1) if item != -1 else slice(-1, None)
+        return Camera(self.intrinsic[item], None, self.z_span,
+                      self.viewport[item], width=self.width,
+                      height=self.height,
+                      log_quaternion=self.log_quaternion[item],
+                      translation=self.translation[item], device=self.device)
 
     def repeat(self, n: int) -> "Camera":
         return self._new(intrinsic=self.intrinsic.repeat(n, 1, 1),

@@ -1,7 +1,7 @@
-// K1 forward: trilinear volume sampler for Hopper (sm_90a).
+// K1: trilinear volume sampler for Hopper (sm_90a), forward and d/dgrid.
 //
-// Replaces: latentfusion_tpu/ops/pallas_fused_sample.py:_kernel_fwd, the
-// pallas_call of _fused_core.
+// Forward replaces: latentfusion_tpu/ops/pallas_fused_sample.py:_kernel_fwd,
+// the pallas_call of _fused_core.
 //
 // Computes F.grid_sample(vol, grid, mode="bilinear", align_corners=False)
 // with zeros or border padding, for a volume batch NV that divides the grid
@@ -26,6 +26,34 @@
 // read neighbouring voxels of a volume that stays resident in L2. Corners
 // outside the volume get weight 0 and a clamped, in-bounds offset. Offsets
 // into the output use 64-bit arithmetic.
+//
+// d/dgrid (K1-bwd-grid) replaces: latentfusion_tpu/ops/pallas_fused_sample.py
+// :_kernel_bwd_grid with _axis_dfactor_vmem, the first pallas_call of
+// _fused_bwd. Gradient refinement takes it; the volume (the latent) is
+// constant there, so d/dvol (K1-bwd-vol) is not computed.
+//
+//   vol   (NV, C, D, H, W) fp32 or bf16; grid (N, K, 3) fp32 in [-1, 1]
+//   g     (N, C, K) fp32 or bf16, dL/dout in the forward's layout
+//   dgrid (N, K, 3) fp32
+//
+// For the x axis, dgrid_x = size_x / 2 * sum_c g_c * sum_{y,z} w_y w_z
+// (v[x1] - v[x0]), and likewise for y and z: the tap factors' derivative
+// is -1 at the floor tap and +1 at the ceil tap, 0 at a tap outside the
+// volume (zeros padding: the JAX kernel's selection over j in [0, size)),
+// and with border padding 0 unless the unclipped coordinate lies in
+// [0, size - 1] (clip before floor). size / 2 is the derivative of the
+// [-1, 1] -> pixel map.
+//
+// What bounds it on an H100: the bytes of g. At the flagship refinement
+// shape (N=8, C=256, 16^3 samples, shared latent) g is 33.5 MB, about
+// 0.01 ms at 3.35 TB/s; the volume (4 MB) stays in L2.
+//
+// Design: as the forward, one thread per sample rebuilds its 8 corner
+// offsets, the trilinear weights and the three axes' derivative weights
+// once, then walks all C channels: g is read coalesced across the warp,
+// the 8 corner values come from the L2-resident volume, and three fp32 sums
+// collect the gradient. Each thread writes its 3 floats once; no atomics,
+// so the result is deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,13 +72,19 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// One axis: pixel coordinate -> two taps (index, weight). Taps outside
-// [0, size) get weight 0 and index 0.
+// One axis: pixel coordinate -> two taps (index, weight, derivative of
+// the weight with respect to the [-1, 1] coordinate). Taps outside
+// [0, size) get weight 0, derivative 0 and index 0.
 __device__ __forceinline__ void axis_taps(float coord, int size, bool border,
                                           int* i0, int* i1, float* f0,
-                                          float* f1) {
+                                          float* f1, float* d0 = nullptr,
+                                          float* d1 = nullptr) {
   float x = ((coord + 1.f) * size - 1.f) * 0.5f;
-  if (border) x = fminf(fmaxf(x, 0.f), (float)(size - 1));
+  float scale = 0.5f * (float)size;
+  if (border) {
+    if (!(x >= 0.f && x <= (float)(size - 1))) scale = 0.f;
+    x = fminf(fmaxf(x, 0.f), (float)(size - 1));
+  }
   const float xf = floorf(x);
   const float w1 = x - xf;
   const bool ok0 = xf >= 0.f && xf <= (float)(size - 1);
@@ -61,6 +95,10 @@ __device__ __forceinline__ void axis_taps(float coord, int size, bool border,
   *i1 = ok1 ? xi + 1 : 0;
   *f0 = ok0 ? 1.f - w1 : 0.f;
   *f1 = ok1 ? w1 : 0.f;
+  if (d0 != nullptr) {
+    *d0 = ok0 ? -scale : 0.f;
+    *d1 = ok1 ? scale : 0.f;
+  }
 }
 
 template <typename VolT, typename OutT>
@@ -114,6 +152,76 @@ void launch(const void* vol, const void* grid, void* out, int64_t nv,
       static_cast<OutT*>(out), n / nv, c, d, h, w, k, border);
 }
 
+template <typename VolT, typename GT>
+__global__ void __launch_bounds__(kThreads)
+fused_sample_bwd_grid_kernel(const VolT* __restrict__ vol,
+                             const float* __restrict__ grid,
+                             const GT* __restrict__ g,
+                             float* __restrict__ dgrid, int64_t group,
+                             int64_t c, int d, int h, int w, int64_t k,
+                             bool border) {
+  const int64_t kk = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (kk >= k) return;
+  const int64_t n = blockIdx.y;
+
+  const float* gr = grid + (n * k + kk) * 3;
+  int x0, x1, y0, y1, z0, z1;
+  float fx[2], fy[2], fz[2], dx[2], dy[2], dz[2];
+  axis_taps(gr[0], w, border, &x0, &x1, &fx[0], &fx[1], &dx[0], &dx[1]);
+  axis_taps(gr[1], h, border, &y0, &y1, &fy[0], &fy[1], &dy[0], &dy[1]);
+  axis_taps(gr[2], d, border, &z0, &z1, &fz[0], &fz[1], &dz[0], &dz[1]);
+
+  // Corner t has bits (z, y, x) = (t >> 2, (t >> 1) & 1, t & 1).
+  const int o[8] = {(z0 * h + y0) * w + x0, (z0 * h + y0) * w + x1,
+                    (z0 * h + y1) * w + x0, (z0 * h + y1) * w + x1,
+                    (z1 * h + y0) * w + x0, (z1 * h + y0) * w + x1,
+                    (z1 * h + y1) * w + x0, (z1 * h + y1) * w + x1};
+  float wgx[8], wgy[8], wgz[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int bz = t >> 2, by = (t >> 1) & 1, bx = t & 1;
+    wgx[t] = fz[bz] * fy[by] * dx[bx];
+    wgy[t] = fz[bz] * dy[by] * fx[bx];
+    wgz[t] = dz[bz] * fy[by] * fx[bx];
+  }
+
+  const int64_t j = (int64_t)d * h * w;
+  const VolT* v = vol + (n / group) * c * j;
+  const GT* gp = g + n * c * k + kk;
+  float ax = 0.f, ay = 0.f, az = 0.f;
+  for (int64_t ci = 0; ci < c; ++ci) {
+    const VolT* vc = v + ci * j;
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float val = load_f(vc + o[t]);
+      sx = fmaf(wgx[t], val, sx);
+      sy = fmaf(wgy[t], val, sy);
+      sz = fmaf(wgz[t], val, sz);
+    }
+    const float gv = load_f(gp + ci * k);
+    ax = fmaf(gv, sx, ax);
+    ay = fmaf(gv, sy, ay);
+    az = fmaf(gv, sz, az);
+  }
+  float* out = dgrid + (n * k + kk) * 3;
+  out[0] = ax;
+  out[1] = ay;
+  out[2] = az;
+}
+
+template <typename VolT, typename GT>
+void launch_bwd_grid(const void* vol, const void* grid, const void* g,
+                     void* dgrid, int64_t nv, int64_t n, int64_t c, int d,
+                     int h, int w, int64_t k, bool border,
+                     cudaStream_t stream) {
+  const dim3 blocks((unsigned)((k + kThreads - 1) / kThreads), (unsigned)n);
+  fused_sample_bwd_grid_kernel<VolT, GT><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const VolT*>(vol), static_cast<const float*>(grid),
+      static_cast<const GT*>(g), static_cast<float*>(dgrid), n / nv, c, d, h,
+      w, k, border);
+}
+
 }  // namespace
 
 extern "C" {
@@ -135,6 +243,33 @@ int lf_fused_sample_fwd(const void* vol, const void* grid, void* out,
   else if (vol_dtype == 1 && out_dtype == 1)
     launch<__nv_bfloat16, __nv_bfloat16>(vol, grid, out, nv, n, c, d, h, w, k,
                                          b, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// dtype codes: 0 = fp32, 1 = bf16, for the volume and for g. Returns
+// cudaGetLastError() after launch.
+int lf_fused_sample_bwd_grid(const void* vol, const void* grid, const void* g,
+                             void* dgrid, int64_t nv, int64_t n, int64_t c,
+                             int64_t d, int64_t h, int64_t w, int64_t k,
+                             int border, int vol_dtype, int g_dtype,
+                             void* stream) {
+  if (n == 0 || k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool b = border != 0;
+  if (vol_dtype == 0 && g_dtype == 0)
+    launch_bwd_grid<float, float>(vol, grid, g, dgrid, nv, n, c, d, h, w, k, b,
+                                  s);
+  else if (vol_dtype == 0 && g_dtype == 1)
+    launch_bwd_grid<float, __nv_bfloat16>(vol, grid, g, dgrid, nv, n, c, d, h,
+                                          w, k, b, s);
+  else if (vol_dtype == 1 && g_dtype == 0)
+    launch_bwd_grid<__nv_bfloat16, float>(vol, grid, g, dgrid, nv, n, c, d, h,
+                                          w, k, b, s);
+  else if (vol_dtype == 1 && g_dtype == 1)
+    launch_bwd_grid<__nv_bfloat16, __nv_bfloat16>(vol, grid, g, dgrid, nv, n,
+                                                  c, d, h, w, k, b, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

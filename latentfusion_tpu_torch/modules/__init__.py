@@ -1,15 +1,17 @@
 """NN building blocks (counterpart of ``latentfusion_tpu/modules``).
 
 ``lrelu_pixel_norm`` and ``pixel_norm`` compute PixelNorm over the channel
-dim 1. Their backend is ``"hopper"`` (the default: kernel K2,
-``ops/lrelu_pnorm.py``, on CUDA tensors; its plain version on CPU tensors)
-or ``"torch"`` (K2's plain PyTorch version everywhere).
+dim 1. Their backend is ``"hopper"`` (the default: kernels K2-fwd and
+K2-bwd, ``ops/lrelu_pnorm.py``, on CUDA tensors; their plain versions on
+CPU tensors) or ``"torch"`` (K2's plain PyTorch forward everywhere, under
+autograd).
 """
 import contextlib
 
 import torch
 
-from ..ops.lrelu_pnorm import lrelu_pixel_norm_fwd, lrelu_pixel_norm_plain
+from ..ops.lrelu_pnorm import lrelu_pixel_norm as _lrelu_pixel_norm_k2
+from ..ops.lrelu_pnorm import lrelu_pixel_norm_plain
 
 _BACKENDS = ("hopper", "torch")
 _LRELU_PNORM_BACKEND = "hopper"
@@ -37,7 +39,7 @@ def lrelu_pixel_norm(x: torch.Tensor, slope: float, eps: float = 1e-8) -> torch.
     """``pixel_norm(leaky_relu(x, slope))`` over dim 1."""
     if _LRELU_PNORM_BACKEND == "torch":
         return lrelu_pixel_norm_plain(x, slope, eps)[0]
-    return lrelu_pixel_norm_fwd(x.contiguous(), slope, eps)[0]
+    return _lrelu_pixel_norm_k2(x, slope, eps)
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

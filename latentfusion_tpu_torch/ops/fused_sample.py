@@ -1,4 +1,4 @@
-"""K1 forward: trilinear 3D volume sampler (counterpart of
+"""K1: trilinear 3D volume sampler, forward and d/dgrid (counterpart of
 ``latentfusion_tpu/ops/pallas_fused_sample.py:grid_sample_3d_fused``).
 
 ``grid_sample_3d_fused`` computes ``F.grid_sample(volume, grid,
@@ -7,10 +7,16 @@ volume batch NV that divides the grid batch N: sample batch n reads volume
 ``n // (N // NV)``, so a latent shared by many hypothesis cameras is read in
 place and never copied N times.
 
-On a CUDA tensor it launches the kernel of ``csrc/fused_sample.cu`` (see the
-note there) or raises; on a CPU tensor it runs ``grid_sample_3d_plain``, the
-same function as an explicit 8-corner gather in PyTorch. ``LAUNCHES`` counts
-kernel launches.
+``grid_sample_3d_bwd_grid`` is its gradient with respect to the grid given
+dL/dout (kernel K1-bwd-grid), and ``grid_sample_3d`` the differentiable
+function: an ``autograd.Function`` whose forward is K1-fwd and whose
+backward is K1-bwd-grid. d/dvolume (K1-bwd-vol) is needed only in training
+and not ported yet: asking for it raises.
+
+On a CUDA tensor each wrapper launches its kernel of ``csrc/fused_sample.cu``
+(see the note there) or raises; on a CPU tensor it runs its plain PyTorch
+version, the same function written out as an explicit 8-corner gather.
+``LAUNCHES`` and ``BWD_GRID_LAUNCHES`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from . import _build
 from .grid_sample import _unnormalize
 
 LAUNCHES = 0
+BWD_GRID_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PADDING = ("zeros", "border")
@@ -100,8 +107,8 @@ def grid_sample_3d_fused(volume: torch.Tensor, grid: torch.Tensor,
     if not (volume.is_contiguous() and grid.is_contiguous()):
         raise ValueError("volume and grid must be contiguous")
     if torch.is_grad_enabled() and (volume.requires_grad or grid.requires_grad):
-        raise RuntimeError("the K1 kernel has no backward pass yet; run under "
-                           "torch.no_grad() or on the plain version")
+        raise RuntimeError("grid_sample_3d_fused is not differentiable; use "
+                           "grid_sample_3d, whose backward is K1-bwd-grid")
     nv, c, d, h, w = volume.shape
     n = grid.shape[0]
     k = grid[0, ..., 0].numel()
@@ -121,3 +128,126 @@ def grid_sample_3d_fused(volume: torch.Tensor, grid: torch.Tensor,
     _build.check(lib, status, "fused_sample_fwd")
     LAUNCHES += 1
     return out
+
+
+def grid_sample_3d_bwd_grid_plain(volume: torch.Tensor, grid: torch.Tensor,
+                                  g: torch.Tensor,
+                                  padding_mode: str = "zeros") -> torch.Tensor:
+    """The K1-bwd-grid kernel's function in plain PyTorch: dL/dgrid (N, Do,
+    Ho, Wo, 3) fp32 of ``grid_sample_3d_plain(volume, grid)`` given dL/dout
+    ``g`` (N, C, Do, Ho, Wo).
+
+    Per axis the tap factors' derivative is -1 at the floor tap and +1 at
+    the ceil tap, zero at a tap outside the volume (whose value is zero)
+    and, with border padding, zero unless the unclipped coordinate lies in
+    [0, size - 1]; times size / 2, the derivative of the [-1, 1] -> pixel
+    map."""
+    _check_args(volume, grid, padding_mode, torch.float32)
+    nv, c, d, h, w = volume.shape
+    n = grid.shape[0]
+    j = d * h * w
+    gr = grid.reshape(n, -1, 3)
+    k = gr.shape[1]
+    border = padding_mode == "border"
+
+    def taps(coord, size):
+        x = _unnormalize(coord, size)
+        scale = size / 2.0
+        if border:
+            scale = scale * ((x >= 0) & (x <= size - 1))
+            x = x.clamp(0.0, size - 1)
+        x0 = torch.floor(x)
+        w1 = x - x0
+        out = []
+        for offset, weight, sign in ((0, 1.0 - w1, -1.0), (1, w1, 1.0)):
+            i = x0 + offset
+            valid = (i >= 0) & (i <= size - 1)
+            out.append((i.clamp(0, size - 1).long(), weight * valid,
+                        sign * scale * valid))
+        return out
+
+    tx, ty, tz = taps(gr[..., 0], w), taps(gr[..., 1], h), taps(gr[..., 2], d)
+    base = (torch.arange(n, device=grid.device) // (n // nv) * j)[:, None]
+    vol_cj = volume.float().transpose(0, 1).reshape(c, nv * j)
+    g_ck = g.float().reshape(n, c, k).transpose(0, 1).reshape(c, n * k)
+    dgrid = torch.zeros(3, n * k, dtype=torch.float32, device=volume.device)
+    for iz, wz, dz in tz:
+        for iy, wy, dy in ty:
+            for ix, wx, dx in tx:
+                idx = base + (iz * h + iy) * w + ix
+                s = (g_ck * vol_cj[:, idx.reshape(-1)]).sum(0)
+                dgrid[0] += (dx * wy * wz).reshape(-1) * s
+                dgrid[1] += (wx * dy * wz).reshape(-1) * s
+                dgrid[2] += (wx * wy * dz).reshape(-1) * s
+    return dgrid.T.reshape(grid.shape)
+
+
+def grid_sample_3d_bwd_grid(volume: torch.Tensor, grid: torch.Tensor,
+                            g: torch.Tensor,
+                            padding_mode: str = "zeros") -> torch.Tensor:
+    """dL/dgrid of ``grid_sample_3d_fused(volume, grid)`` given dL/dout
+    ``g`` (N, C, Do, Ho, Wo); returns fp32 shaped like ``grid``."""
+    global BWD_GRID_LAUNCHES
+    if volume.device.type == "cpu":
+        return grid_sample_3d_bwd_grid_plain(volume, grid, g, padding_mode)
+    if volume.device.type != "cuda":
+        raise ValueError(f"unsupported device {volume.device}")
+    _check_args(volume, grid, padding_mode, torch.float32)
+    nv, c, d, h, w = volume.shape
+    n = grid.shape[0]
+    if tuple(g.shape) != (n, c, *grid.shape[1:4]):
+        raise ValueError(f"g {tuple(g.shape)} does not match the output "
+                         f"{(n, c, *grid.shape[1:4])}")
+    if g.dtype not in _DTYPE_CODES:
+        raise TypeError("g must be float32 or bfloat16")
+    if g.device != volume.device:
+        raise ValueError("volume, grid and g must be on one device")
+    if not (volume.is_contiguous() and grid.is_contiguous() and g.is_contiguous()):
+        raise ValueError("volume, grid and g must be contiguous")
+    k = grid[0, ..., 0].numel()
+    dgrid = torch.empty(grid.shape, dtype=torch.float32, device=volume.device)
+    lib = _build.load("fused_sample")
+    fn = lib.lf_fused_sample_bwd_grid
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(volume.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(volume.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                    dgrid.data_ptr(), nv, n, c, d, h, w, k,
+                    int(padding_mode == "border"), _DTYPE_CODES[volume.dtype],
+                    _DTYPE_CODES[g.dtype], stream)
+    _build.check(lib, status, "fused_sample_bwd_grid")
+    BWD_GRID_LAUNCHES += 1
+    return dgrid
+
+
+class FusedSample3d(torch.autograd.Function):
+    """Forward K1-fwd, backward K1-bwd-grid; saves the volume and grid."""
+
+    @staticmethod
+    def forward(ctx, volume, grid, padding_mode):
+        ctx.save_for_backward(volume, grid)
+        ctx.padding_mode = padding_mode
+        return grid_sample_3d_fused(volume, grid, padding_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[0]:
+            raise NotImplementedError(
+                "the gradient with respect to the volume (kernel K1-bwd-vol, "
+                "training only) is not ported yet: ROADMAP.md Queue 2")
+        volume, grid = ctx.saved_tensors
+        dgrid = None
+        if ctx.needs_input_grad[1]:
+            dgrid = grid_sample_3d_bwd_grid(volume, grid, g.contiguous(),
+                                            ctx.padding_mode)
+        return None, dgrid, None
+
+
+def grid_sample_3d(volume: torch.Tensor, grid: torch.Tensor,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Differentiable (in ``grid``) ``grid_sample_3d_fused`` with fp32
+    output; see the module docstring."""
+    return FusedSample3d.apply(volume.contiguous(), grid.contiguous(),
+                               padding_mode)

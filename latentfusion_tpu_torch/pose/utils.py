@@ -1,0 +1,90 @@
+"""Pose estimation utilities (counterpart of ``latentfusion_tpu/pose/utils.py``):
+hypothesis sampling around an estimate, the optimizable camera leaves, axis
+flips, and the mask losses."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import three
+from ..camera import Camera
+from ..three import orientation
+from ..three import quaternion as quat
+
+
+def perturb_camera(camera: Camera, translation_std, quaternion_std,
+                   generator: torch.Generator) -> Camera:
+    """Gaussian perturbation of translation and log-quaternion."""
+    noise_t = torch.randn(camera.translation.shape, generator=generator,
+                          device=generator.device).to(camera.device)
+    noise_q = torch.randn(camera.log_quaternion.shape, generator=generator,
+                          device=generator.device).to(camera.device)
+    return camera.replace(
+        translation=camera.translation + noise_t * translation_std,
+        log_quaternion=camera.log_quaternion + noise_q * quaternion_std)
+
+
+def cameras_with_estimate(camera_est: Camera, quaternion: torch.Tensor,
+                          translation: torch.Tensor) -> Camera:
+    """Cameras with ``camera_est``'s intrinsic, viewport and frame, at the
+    given rotations (n, 4) and translations (n, 3)."""
+    n = quaternion.shape[0]
+    return Camera(camera_est.intrinsic.expand(n, *camera_est.intrinsic.shape[1:]),
+                  three.to_extrinsic_matrix(translation, quaternion),
+                  camera_est.z_span, viewport=camera_est.viewport.expand(n, 4),
+                  width=camera_est.width, height=camera_est.height,
+                  device=camera_est.device)
+
+
+def sample_cameras_with_estimate(n: int, camera_est: Camera,
+                                 generator: torch.Generator,
+                                 translation_std: float = 0.0,
+                                 hemisphere: bool = False,
+                                 upright: bool = False) -> Camera:
+    """``n`` sunflower-even rotation hypotheses (each rolled at random about
+    its viewing ray unless ``upright``) around ``camera_est``'s translation."""
+    device = camera_est.device
+    noise = torch.randn(n, 3, generator=generator, device=generator.device)
+    translation = camera_est.translation.expand(n, 3) + noise.to(device) * translation_std
+    quaternion = orientation.evenly_distributed_quats(
+        n, hemisphere=hemisphere, upright=upright, generator=generator,
+        device=generator.device).to(device)
+    return cameras_with_estimate(camera_est, quaternion, translation)
+
+
+def camera_params(camera: Camera) -> dict:
+    """The leaves that refinement optimizes, by ``Camera.replace`` name:
+    rotation, translation and the zoom viewport."""
+    return {"log_quaternion": camera.log_quaternion,
+            "translation": camera.translation, "viewport": camera.viewport}
+
+
+def flip_camera(camera: Camera, axis=(0.0, 0.0, 1.0)) -> Camera:
+    """Rotate each camera 180 degrees about an object axis."""
+    ax = torch.tensor([axis], dtype=torch.float32, device=camera.device)
+    return camera.rotate(quat.from_axis_angle(ax.expand(len(camera), 3), math.pi))
+
+
+def zero_invalid_pixels(tensor: torch.Tensor, invalid_mask: torch.Tensor) -> torch.Tensor:
+    """Zero the loss where the target has no depth inside its mask."""
+    return tensor * (~invalid_mask).to(tensor.dtype)
+
+
+def iou_loss(input_mask, target_mask, eps: float = 1e-4):
+    """log(union) - log(intersection) per batch item."""
+    intersection = (input_mask * target_mask).sum(dim=(1, 2, 3))
+    union = (input_mask.sum(dim=(1, 2, 3)) + target_mask.sum(dim=(1, 2, 3))
+             - intersection)
+    return torch.log(union.clamp_min(eps)) - torch.log(intersection.clamp_min(eps))
+
+
+def reduce_loss_mask(loss, mask, eps: float = 1e-4):
+    """Masked mean over the spatial dims."""
+    if loss.dim() == 4:
+        loss = loss.squeeze(1)
+    if mask.dim() == 4:
+        mask = mask.squeeze(1)
+    num = (loss * mask).sum(dim=(-2, -1)).clamp_min(eps / 10)
+    den = mask.sum(dim=(-2, -1)).clamp_min(eps)
+    return num / den

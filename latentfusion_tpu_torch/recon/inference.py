@@ -27,13 +27,14 @@ class LatentFusionModel:
                  photographer_state: Optional[Mapping],
                  camera_dist: float, device="cuda"):
         """Modules with their state dicts (None keeps a module's own
-        weights). The modules are moved to ``device`` and set to eval."""
+        weights). The modules are moved to ``device``, set to eval and
+        frozen: gradients flow to the inputs (cameras), never the weights."""
         self.device = resolve_device(device)
         for module, state in ((sculptor, sculptor_state), (fuser, fuser_state),
                               (photographer, photographer_state)):
             if state is not None:
                 module.load_state_dict(state)
-            module.to(self.device).eval()
+            module.to(self.device).eval().requires_grad_(False)
         self.sculptor = sculptor
         self.fuser = fuser
         self.photographer = photographer
@@ -72,6 +73,14 @@ class LatentFusionModel:
         obs = self.preprocess_observation(observation)
         return models.encode(self.sculptor, self.fuser, obs.camera,
                              obs.color[None], obs.depth[None], obs.mask[None])
+
+    def decode_latent(self, z_obj: torch.Tensor, camera: Camera,
+                      return_latent: bool = True, apply_mask: bool = False):
+        """Decode one latent object at every camera of ``camera`` (already
+        zoomed) with autograd on: the pose estimators' render. Returns
+        (y, z_2d | None) with ``y`` entries (1, N, ...)."""
+        return models.decode(self.photographer, z_obj, camera,
+                             return_latent=return_latent, apply_mask=apply_mask)
 
     @torch.no_grad()
     def render_latent_object(self, z_obj: torch.Tensor, camera: Camera,

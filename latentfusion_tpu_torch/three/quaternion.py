@@ -10,6 +10,12 @@ import torch
 from . import core
 
 
+def identity(n: int, device=None) -> torch.Tensor:
+    """``n`` identity quaternions (1, 0, 0, 0)."""
+    q = torch.tensor((1.0, 0.0, 0.0, 0.0), device=device)
+    return q.repeat(n, 1)
+
+
 def normalize(quaternion: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     norm = torch.linalg.norm(quaternion, dim=-1, keepdim=True)
     return quaternion / norm.clamp_min(eps)
@@ -108,3 +114,22 @@ def qlog(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     xyz = (v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(eps)
            * core.acos_safe(s / mag.clamp_min(eps)))
     return torch.cat((torch.log(mag), xyz), dim=-1)
+
+
+def from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Unit quaternions for rotations by ``angle`` about ``axis`` (..., 3)."""
+    if not torch.is_tensor(angle):
+        angle = torch.full(axis.shape[:-1], float(angle), dtype=axis.dtype,
+                           device=axis.device)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    c = torch.cos(angle / 2.0)
+    s = torch.sin(angle / 2.0)
+    return torch.stack((c, s * axis[..., 0], s * axis[..., 1], s * axis[..., 2]),
+                       dim=-1)
+
+
+def angular_distance(q1: torch.Tensor, q2: torch.Tensor,
+                     eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise angular distances (N1, N2) between two quaternion sets."""
+    dot = normalize(q1) @ normalize(q2).T
+    return 2 * core.acos_safe(dot.abs(), eps=eps)

@@ -11,8 +11,9 @@ Conventions kept from the reference, which trained checkpoints depend on:
   the window (``Camera.camera_coords``).
 
 Both transforms sample through ``_volume_sample``. Its backend is
-``"hopper"`` (the default: kernel K1, ``ops/fused_sample.py``, for every
-shape on a CUDA tensor) or ``"torch"`` (K1's plain PyTorch version).
+``"hopper"`` (the default: kernels K1-fwd and K1-bwd-grid,
+``ops/fused_sample.py``, for every shape on a CUDA tensor) or ``"torch"``
+(K1's plain PyTorch forward, under autograd).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import contextlib
 import torch
 
 from .camera import Camera
-from .ops.fused_sample import grid_sample_3d_fused, grid_sample_3d_plain
+from .ops.fused_sample import grid_sample_3d, grid_sample_3d_plain
 
 _BACKENDS = ("hopper", "torch")
 _VOLUME_SAMPLE_BACKEND = "hopper"
@@ -50,7 +51,7 @@ def _volume_sample(volume: torch.Tensor, grid: torch.Tensor,
     """volume (NV, C, D, H, W) with NV | len(grid); grid (N, D, H, W, 3)."""
     if _VOLUME_SAMPLE_BACKEND == "torch":
         return grid_sample_3d_plain(volume, grid, padding_mode)
-    return grid_sample_3d_fused(volume.contiguous(), grid, padding_mode)
+    return grid_sample_3d(volume, grid, padding_mode)
 
 
 def get_obj_coords(cube_size: float, size: int, device) -> torch.Tensor:

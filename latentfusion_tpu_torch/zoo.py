@@ -4,7 +4,8 @@ the flagship family (256² input, 256-channel 16³ latent), the demo family
 it) and the tiny test family.
 
 Each constructor returns the module on ``device`` (default ``"cuda"``), with
-weights drawn from ``generator`` when one is given.
+weights drawn from ``generator`` when one is given. ``canonical_camera`` and
+``random_view_cameras`` make the cameras of the accuracy rigs.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import three
+from .camera import Camera
 from .device import resolve_device
 from .modules.equalized import EqualizedConv
 from .recon.fusion import GRUFuser
@@ -127,3 +130,33 @@ def tiny_photographer(input_size: int = 8, device="cuda",
 
 def tiny_fuser(device="cuda", generator=None) -> GRUFuser:
     return _place(GRUFuser(in_channels=4, cube_size=1.0), device, generator)
+
+
+def canonical_camera(n: int, camera_dist: float = 1.5, device="cuda") -> Camera:
+    """``n`` cameras with the LINEMOD-style intrinsic (f = 615, 640x480) at
+    ``camera_dist`` from the object, identity rotations."""
+    device = resolve_device(device)
+    f, width, height = 615.0, 640, 480
+    intrinsic = torch.tensor([[f, 0.0, width / 2], [0.0, f, height / 2],
+                              [0.0, 0.0, 1.0]], device=device).repeat(n, 1, 1)
+    quats = three.quaternion.identity(n, device=device)
+    trans = torch.tensor([[0.0, 0.0, camera_dist]], device=device).repeat(n, 1)
+    return Camera(intrinsic, three.to_extrinsic_matrix(trans, quats), z_span=0.5,
+                  width=width, height=height, device=device)
+
+
+def random_view_cameras(n: int, generator: torch.Generator,
+                        camera_dist: float = DEMO_CAMERA_DIST,
+                        device="cuda") -> Camera:
+    """Random full-frame viewpoints around a unit object at ``camera_dist``
+    (the accuracy rigs' reference views): uniform rotations, translation
+    jittered by N(0, (0.1, 0.1, 0.25))."""
+    device = resolve_device(device)
+    quats = three.quaternion.random(n, generator).to(device)
+    noise = torch.randn(n, 3, generator=generator, device=generator.device).to(device)
+    trans = (torch.tensor([0.0, 0.0, camera_dist], device=device)
+             + noise * torch.tensor([0.1, 0.1, 0.25], device=device))
+    template = canonical_camera(1, camera_dist, device=device)
+    return Camera(template.intrinsic.expand(n, 3, 4),
+                  three.to_extrinsic_matrix(trans, quats), z_span=template.z_span,
+                  width=template.width, height=template.height, device=device)

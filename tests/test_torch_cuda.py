@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 forward and d/dgrid, K2 forward and
+backward) against their plain PyTorch versions on the card.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false and
 run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
 
@@ -68,17 +69,71 @@ def test_k2_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_tensors_that_require_grad(cuda):
-    """Neither kernel has a backward pass yet: a tensor that needs a
-    gradient is refused rather than cut out of the graph."""
-    vol = torch.zeros(1, 4, 4, 4, 4, device=cuda, requires_grad=True)
-    grid = torch.zeros(2, 3, 3, 3, 3, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,n,k", [(1, 8, (16, 16, 16)), (3, 6, (5, 7, 9))])
+def test_k1_bwd_grid_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, k):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vol = torch.randn(nv, 40, 16, 16, 16, generator=g, device=cuda).to(dtype)
+    grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
+    gout = torch.randn(n, 40, *k, generator=g, device=cuda).to(dtype)
+    before = fused_sample.BWD_GRID_LAUNCHES
+    out = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding_mode)
+    torch.cuda.synchronize()
+    assert fused_sample.BWD_GRID_LAUNCHES == before + 1
+    ref = fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding_mode)
+    assert out.shape == grid.shape and out.dtype == torch.float32
+    assert _err(out, ref) <= FP32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33)])
+def test_k2_bwd_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    gy = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    _, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+    before = lrelu_pnorm.BWD_LAUNCHES
+    dx = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
+    torch.cuda.synchronize()
+    assert lrelu_pnorm.BWD_LAUNCHES == before + 1
+    ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
+    assert dx.dtype == dtype
+    assert _err(dx, ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_autograd_through_kernels_matches_plain(cuda):
+    """Gradients through the two autograd Functions (forward and backward
+    kernels) agree with autograd through the plain forward versions; d/dvol
+    is refused, and a direct call of a forward kernel on a tensor that
+    requires a gradient is refused rather than cut out of the graph."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vol = torch.randn(1, 24, 8, 8, 8, generator=g, device=cuda)
+    grid = (torch.rand(4, 6, 6, 6, 3, generator=g, device=cuda) * 2.2 - 1.1).requires_grad_()
+    x = torch.randn(4, 196, 6, 6, generator=g, device=cuda).requires_grad_()
+    gs = torch.randn(4, 24, 6, 6, 6, generator=g, device=cuda)
+    gx = torch.randn(4, 196, 6, 6, generator=g, device=cuda)
+    for padding in ("zeros", "border"):
+        k1 = fused_sample.BWD_GRID_LAUNCHES
+        d, = torch.autograd.grad(fused_sample.grid_sample_3d(vol, grid, padding), grid, gs)
+        assert fused_sample.BWD_GRID_LAUNCHES == k1 + 1
+        ref, = torch.autograd.grad(fused_sample.grid_sample_3d_plain(vol, grid, padding),
+                                   grid, gs)
+        assert _err(d, ref) <= FP32_TOL
+    k2 = lrelu_pnorm.BWD_LAUNCHES
+    d, = torch.autograd.grad(lrelu_pnorm.lrelu_pixel_norm(x, 0.2, 1e-8), x, gx)
+    assert lrelu_pnorm.BWD_LAUNCHES == k2 + 1
+    ref, = torch.autograd.grad(lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)[0], x, gx)
+    assert _err(d, ref) <= FP32_TOL
+    out = fused_sample.grid_sample_3d(vol.clone().requires_grad_(), grid.detach())
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        out.sum().backward()
+    with pytest.raises(RuntimeError, match="not differentiable"):
         fused_sample.grid_sample_3d_fused(vol, grid)
-    with pytest.raises(RuntimeError, match="no backward"):
-        lrelu_pnorm.lrelu_pixel_norm_fwd(vol, 0.2, 1e-8)
-    with torch.no_grad():
-        assert fused_sample.grid_sample_3d_fused(vol, grid).shape == (2, 4, 3, 3, 3)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
 
 
 @pytest.mark.cuda

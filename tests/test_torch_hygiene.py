@@ -78,6 +78,20 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
         LatentFusionModel.from_checkpoint(tmp_path / "unread.pth")
 
 
+def test_pose_entry_points_raise_without_gpu(no_gpu):
+    from latentfusion_tpu_torch import testing
+
+    for make in (testing.EllipsoidOracleModel, testing.make_camera,
+                 lambda: zoo.canonical_camera(2),
+                 lambda: zoo.random_view_cameras(2, torch.Generator())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    oracle = testing.EllipsoidOracleModel(device="cpu")
+    assert oracle.device.type == "cpu"
+    assert testing.make_camera(device="cpu").device.type == "cpu"
+    assert len(zoo.random_view_cameras(3, torch.Generator(), device="cpu")) == 3
+
+
 def test_entry_points_run_on_cpu_when_asked(no_gpu):
     K, ext = _camera_args()
     cam = Camera(K, ext, width=64, height=48, device="cpu")

@@ -1,11 +1,14 @@
 """The port's 3D math, camera, 2D resampling, volume transforms and the
-plain versions of its two kernels, held against the JAX package on the same
-numpy inputs (CPU).
+plain versions of its kernels (K1 forward and d/dgrid, K2 forward and
+backward), held against the JAX package on the same numpy inputs (CPU).
 
 Tolerances (fp32): 1e-5 for ops, 2e-4 for geometry (camera matrices, crop
 boxes, pixel coordinates, which pass through trig and divisions of
-quantities near 600).
+quantities near 600). Gradients of the kernels are compared at 1e-5
+relative to their largest magnitude (they reach about 30: C-channel sums of
+tap differences scaled by size / 2).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,8 @@ from latentfusion_tpu.ops.interpolate import interpolate as j_interpolate
 from latentfusion_tpu.ops.grid_sample import grid_sample_2d as j_grid_sample_2d
 from latentfusion_tpu.ops.pallas_fused_sample import grid_sample_3d_fused as j_fused
 from latentfusion_tpu.ops.pallas_lrelu_pnorm import lrelu_pixel_norm_pallas
+from latentfusion_tpu.three import core as jcore
+from latentfusion_tpu.three import orientation as jorientation
 from latentfusion_tpu.three import quaternion as jquat
 
 from latentfusion_tpu_torch import three as tthree
@@ -31,6 +36,7 @@ from latentfusion_tpu_torch.ops import affine_resample as taffine
 from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
 from latentfusion_tpu_torch.ops.grid_sample import grid_sample_2d as t_grid_sample_2d
 from latentfusion_tpu_torch.ops.interpolate import interpolate as t_interpolate
+from latentfusion_tpu_torch.three import orientation as torientation
 from latentfusion_tpu_torch.three import quaternion as tquat
 
 OPS_TOL = 1e-5
@@ -47,6 +53,13 @@ def _one_thread():
 
 def close(a, b, tol, rtol=0.0):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol, rtol=rtol)
+
+
+def close_rel(a, b, tol):
+    """max |a - b| within ``tol`` of the larger of max |b| and 1."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= tol * max(float(np.abs(b).max()), 1.0)
 
 
 def unit_quats(rng, n):
@@ -82,6 +95,51 @@ def test_quaternion_functions_match(rng):
     close(tquat.qlog(tq), jquat.qlog(q), OPS_TOL)
     v = rng.randn(16, 3).astype(np.float32) * 0.5
     close(tquat.qexp(torch.from_numpy(v)), jquat.qexp(v), OPS_TOL)
+
+
+def test_quaternion_additions_match(rng):
+    q = unit_quats(rng, 8)
+    q2 = unit_quats(rng, 5)
+    axis = rng.randn(8, 3).astype(np.float32)
+    angle = rng.rand(8).astype(np.float32) * 3
+    close(tquat.identity(3), jquat.identity(3), 0)
+    close(tquat.from_axis_angle(torch.from_numpy(axis), torch.from_numpy(angle)),
+          jquat.from_axis_angle(axis, angle), OPS_TOL)
+    close(tquat.from_axis_angle(torch.from_numpy(axis), np.pi),
+          jquat.from_axis_angle(axis, np.pi), OPS_TOL)
+    close(tquat.angular_distance(torch.from_numpy(q), torch.from_numpy(q2)),
+          jquat.angular_distance(q, q2), 1e-4)
+    pts = rng.randn(2, 7, 3).astype(np.float32)
+    mats = np.array(jthree.to_extrinsic_matrix(rng.randn(2, 3).astype(np.float32),
+                                               unit_quats(rng, 2)))
+    close(tthree.transform_coords(torch.from_numpy(pts), torch.from_numpy(mats)),
+          jcore.transform_coords(pts, mats), OPS_TOL)
+    close(tthree.transform_coords(torch.from_numpy(pts[0]), torch.from_numpy(mats[:1])),
+          jcore.transform_coords(pts[0], mats[:1]), OPS_TOL)
+
+
+@pytest.mark.parametrize("hemisphere", [False, True])
+def test_evenly_distributed_points_match(hemisphere):
+    close(torientation.evenly_distributed_points(50, hemisphere),
+          jorientation.evenly_distributed_points(50, hemisphere), OPS_TOL)
+
+
+@pytest.mark.parametrize("upright", [False, True])
+def test_evenly_distributed_quats_match_with_the_same_draws(upright):
+    """The rolled quaternions from JAX's own draw of ``down`` vectors (the
+    two frameworks' random streams differ); upright ones draw nothing."""
+    key = jax.random.PRNGKey(3)
+    j = jorientation.evenly_distributed_quats(40, upright=upright, key=key)
+    rays = torientation.evenly_distributed_points(40)
+    if upright:
+        t = torientation.evenly_distributed_quats(40, upright=True)
+    else:
+        down = torch.from_numpy(np.array(jcore.uniform_unit_vector(key, 40)))
+        t = torientation.quat_from_rays(-rays, down)
+    close(t, j, 1e-4)
+    g = torch.Generator().manual_seed(0)
+    r = torientation.evenly_distributed_quats(40, generator=g)
+    close(torch.linalg.norm(r, dim=1), np.ones(40), 1e-5)
 
 
 def test_rigid_functions_match(rng):
@@ -133,6 +191,39 @@ def test_camera_edits_and_containers_match(rng):
           GEOM_TOL)
     close(tc.repeat(3).translation, jc.repeat(3).translation, GEOM_TOL)
     assert len(TCamera.cat([tc, tc2])) == 6 and len(tc.repeat(3)) == 12
+
+
+def test_camera_replace_rotate_index_match(rng):
+    jc, tc = both_cameras(rng, 4)
+    q = unit_quats(rng, 4)
+    close(tc.rotate(torch.from_numpy(q)).extrinsic, jc.rotate(q).extrinsic, GEOM_TOL)
+    close(tc[1:3].translation, jc[1:3].translation, GEOM_TOL)
+    close(tc[-1].extrinsic, jc[-1].extrinsic, GEOM_TOL)
+    close(tc[2].obj_to_image, jc[2].obj_to_image, GEOM_TOL)
+    t = rng.randn(4, 3).astype(np.float32)
+    close(tc.replace(translation=torch.from_numpy(t)).extrinsic,
+          jc.replace(translation=t).extrinsic, GEOM_TOL)
+    for a, b in zip(tc.pixel_coords_uv((5, 7)), jc.pixel_coords_uv((5, 7))):
+        close(a, b, GEOM_TOL)
+    with pytest.raises(TypeError):
+        tc.replace(extrinsic=None)
+
+
+def test_camera_keeps_the_graph_of_pose_leaves(rng):
+    """Constructing, replacing, zooming and rotating keep pose leaves that
+    require a gradient in the graph: nothing re-wraps them."""
+    _, tc = both_cameras(rng, 2)
+    lq = tc.log_quaternion.clone().requires_grad_()
+    t = tc.translation.clone().requires_grad_()
+    vp = tc.viewport.clone().requires_grad_()
+    cam = TCamera(tc.intrinsic, None, 0.5, vp, width=64, height=48,
+                  log_quaternion=lq, translation=t, device="cpu")
+    assert cam.log_quaternion is lq and cam.translation is t and cam.viewport is vp
+    cam = cam.replace(translation=t * 1.0).rotate(tquat.identity(2))
+    loss = (ttransforms.object_to_camera_grid(cam, 4).sum()
+            + cam.zoom(None, 16, 1.5).viewport.sum())
+    grads = torch.autograd.grad(loss, (lq, t, vp))
+    assert all(float(g.abs().sum()) > 0 for g in grads)
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
@@ -356,3 +447,77 @@ def test_k2_wrapper_on_cpu_is_the_plain_version(rng):
     assert lrelu_pnorm.LAUNCHES == before
     yb, _ = lrelu_pnorm.lrelu_pixel_norm_fwd(x.bfloat16(), 0.2, 1e-8)
     assert yb.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------- K1-bwd-grid plain
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("case", ["batched", "k_padding", "shared_batch1",
+                                  "shared_groups"])
+def test_k1_bwd_grid_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, case):
+    """d/dgrid with the volume held fixed: the plain version of K1-bwd-grid
+    against jax.vjp of the Pallas kernel (interpret mode) and against torch
+    autograd of the plain forward, over the forward's cases."""
+    nv, n, k = {"batched": (2, 2, (8, 8, 8)), "k_padding": (1, 1, (5, 7, 9)),
+                "shared_batch1": (1, 4, (8, 8, 8)),
+                "shared_groups": (2, 6, (4, 4, 4))}[case]
+    vol, grid = _k1_inputs(rng, nv, n, k=k)
+    g = rng.randn(n, 16, *k).astype(np.float32)
+    out = fused_sample.grid_sample_3d_bwd_grid_plain(
+        torch.from_numpy(vol), torch.from_numpy(grid), torch.from_numpy(g), padding_mode)
+    assert out.shape == grid.shape and out.dtype == torch.float32
+    _, vjp = jax.vjp(lambda gr: j_fused(jnp.asarray(vol), gr, padding_mode=padding_mode),
+                     jnp.asarray(grid))
+    close_rel(out, vjp(jnp.asarray(g))[0], OPS_TOL)
+    grid_t = torch.from_numpy(grid).requires_grad_()
+    fwd = fused_sample.grid_sample_3d_plain(torch.from_numpy(vol), grid_t, padding_mode)
+    close_rel(out, torch.autograd.grad(fwd, grid_t, torch.from_numpy(g))[0], OPS_TOL)
+
+
+def test_k1_function_backward_on_cpu(rng):
+    """grid_sample_3d (the autograd Function) on CPU: its gradient is the
+    plain K1-bwd-grid, no kernel is counted, and d/dvolume raises."""
+    vol, grid = _k1_inputs(rng, 1, 3, k=(4, 5, 6))
+    grid_t = torch.from_numpy(grid).requires_grad_()
+    before = (fused_sample.LAUNCHES, fused_sample.BWD_GRID_LAUNCHES)
+    out = fused_sample.grid_sample_3d(torch.from_numpy(vol), grid_t, "border")
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    dgrid, = torch.autograd.grad(out, grid_t, g)
+    close(dgrid, fused_sample.grid_sample_3d_bwd_grid_plain(
+        torch.from_numpy(vol), grid_t.detach(), g, "border"), 0)
+    assert (fused_sample.LAUNCHES, fused_sample.BWD_GRID_LAUNCHES) == before
+    vol_t = torch.from_numpy(vol).requires_grad_()
+    out = fused_sample.grid_sample_3d(vol_t, torch.from_numpy(grid), "zeros")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        out.sum().backward()
+
+
+# -------------------------------------------------------- K2-bwd plain
+@pytest.mark.parametrize("shape", [(2, 196, 4, 4, 4), (4, 128, 8, 8), (3, 64, 16)])
+def test_k2_bwd_plain_matches_pallas_and_jnp_vjp(rng, shape):
+    """K2-bwd's plain version (channel dim 1) against jax.vjp of the Pallas
+    kernel in interpret mode (channels last) and of the jnp custom VJP,
+    C=196 included."""
+    x = rng.randn(*shape).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    _, inv = lrelu_pnorm.lrelu_pixel_norm_plain(torch.from_numpy(x), 0.2, 1e-8)
+    dx = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(torch.from_numpy(x), inv,
+                                                torch.from_numpy(g), 0.2)
+    _, vjp = jax.vjp(lambda v: lrelu_pixel_norm_pallas(v, 0.2, 1e-8, True),
+                     jnp.asarray(np.moveaxis(x, 1, -1)))
+    close_rel(dx, np.moveaxis(np.asarray(vjp(jnp.asarray(np.moveaxis(g, 1, -1)))[0]),
+                              -1, 1), OPS_TOL)
+    _, vjp = jax.vjp(lambda v: jmodules._lrelu_pixel_norm_jnp(v, 0.2, 1e-8, 1),
+                     jnp.asarray(x))
+    close_rel(dx, vjp(jnp.asarray(g))[0], OPS_TOL)
+
+
+def test_k2_function_backward_on_cpu(rng):
+    """lrelu_pixel_norm (the autograd Function) on CPU: the plain K2-bwd,
+    equal to autograd of the plain forward, no kernel counted."""
+    x = torch.from_numpy(rng.randn(2, 196, 3, 3).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.randn(2, 196, 3, 3).astype(np.float32))
+    before = (lrelu_pnorm.LAUNCHES, lrelu_pnorm.BWD_LAUNCHES)
+    dx, = torch.autograd.grad(lrelu_pnorm.lrelu_pixel_norm(x, 0.2, 1e-8), x, g)
+    ref, = torch.autograd.grad(lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)[0], x, g)
+    close_rel(dx, ref, OPS_TOL)
+    assert (lrelu_pnorm.LAUNCHES, lrelu_pnorm.BWD_LAUNCHES) == before
