@@ -5,12 +5,15 @@
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
 
-1. device: the card's name and power limit; build the four CUDA kernels
-   (K1-fwd and K1-bwd-grid in csrc/fused_sample.cu, K2-fwd and K2-bwd in
-   csrc/lrelu_pnorm.cu) with nvcc, one process per source, started together.
+1. device: the card's name and power limit; build the five CUDA kernels
+   (K1-fwd, K1-bwd-grid and K1-bwd-vol in csrc/fused_sample.cu, K2-fwd and
+   K2-bwd in csrc/lrelu_pnorm.cu) with nvcc, one process per source,
+   started together.
 2. kernels: each kernel against its plain PyTorch version at the shapes of
-   the build + render path and of the refinement backward, with kernel,
-   plain and library times (CUDA events, warm-up excluded).
+   the build + render path, of the refinement backward and of the training
+   step (K1-bwd-vol on the flagship recipe's decode and encode grids), with
+   kernel, plain and library times (CUDA events, warm-up excluded); then K1
+   at a shape of the tiled sampler K3 (volumes over 17^3), which K1 serves.
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -29,16 +32,27 @@ line after it ends:
    shaded views of the analytic ellipsoid, then CEM + refinement on 8
    seeded target poses; ADD-S within a tenth of the diameter on at least 7.
    One refinement step must agree with the plain versions.
+7. training, flagship: the published recipe's generator step
+   (train/step.py make_recon_train_step, no discriminator) with weights
+   N(0, 1) from --seed, on batches of the analytic ellipsoid rendered on
+   the card: global batch 8 objects in 2 microbatches, 8 input and 24
+   output views of 640x480 zoomed to 256^2, depth hard smooth-L1 (k 16384)
+   and mask BCE at weight 25, Adam lr 1e-3, betas (0, 0.99). One step's
+   gradient must agree with the plain versions (see gradient_check);
+   the launch counters must show K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd on
+   it. Then ms per step, peak memory and a profile of one step, and a run
+   on a pool of batches whose held-out loss must fall.
 
-Then one ``kernels`` JSON line (launches from phase 5's pose path). The
-last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero,
-as does a machine without a GPU. TF32 is off throughout, so kernel and
-plain paths compare in fp32.
+Then one ``kernels`` JSON line (each kernel's launches on the main path of
+the slice that ported it: phase 5's pose path, phase 7's training step for
+K1-bwd-vol; ``launches_by_path`` has both). The last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
+machine without a GPU. TF32 is off throughout, so kernel and plain paths
+compare in fp32.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import sys
@@ -68,6 +82,11 @@ FLOOR_EPS = (1e-7, 4e-7)
 FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
 ORACLE_AXES = (0.21, 0.36, 0.5)  # tools/train_encoder_distill.py's ellipsoid
 ORACLE_DIAMETER = 2 * max(ORACLE_AXES)
+# The published recipe (tools/train_reconstruct.py): global batch 8 in 2
+# microbatches, 8 input and 24 output views, 640x480 renders.
+TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
+TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 40, 10
+TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
 
 
 def say(*parts) -> None:
@@ -283,6 +302,142 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
     return records
 
 
+def train_config():
+    """The published recipe's step settings (tools/train_reconstruct.py; the
+    camera distance is its auto_camera_dist for 640x480 renders)."""
+    from latentfusion_tpu_torch.recon.utils import optimal_camera_dist
+
+    return {"camera_dist": optimal_camera_dist(615.0, 480, 3 ** 0.5 / 2, slack=0.1),
+            "random_orientation": True, "g_depth_recon_loss_type": "hard_smooth_l1",
+            "g_depth_recon_loss_weight": 25.0, "g_depth_recon_loss_k": 16384,
+            "g_mask_recon_loss_weight": 25.0}
+
+
+def train_batch(generator, batch_size=TRAIN_BATCH):
+    """One raw oracle batch of the recipe's views, rendered on the card."""
+    from latentfusion_tpu_torch import testing
+
+    return testing.render_training_batch(generator, batch_size, TRAIN_IN, TRAIN_OUT,
+                                         device="cuda")
+
+
+def lib_bwd_vol(vol_shape, grid, g, padding):
+    """aten's grid-sample backward, input gradient only, on the volume
+    repeated to N, then the sum over each volume's group."""
+    nv, n = vol_shape[0], grid.shape[0]
+    vol_n = torch.zeros((n, *vol_shape[1:]), device=grid.device)
+    pad = {"zeros": 0, "border": 1}[padding]
+
+    def run():
+        dv, _ = torch.ops.aten.grid_sampler_3d_backward(
+            g, vol_n, grid, 0, pad, False, [True, False])
+        return dv.reshape(nv, n // nv, *vol_shape[1:]).sum(1)
+    return run
+
+
+def phase_train_kernels(fused_sample, seed):
+    """K1-bwd-vol against its plain version on the grids of the flagship
+    training microbatch (4 objects): decode (each object's latent read by
+    its 24 output views) and encode (one camera volume per input view);
+    returns its timing record at the decode shape."""
+    from latentfusion_tpu_torch import transforms, zoo
+    from latentfusion_tpu_torch.recon.utils import process_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    objects = TRAIN_BATCH // TRAIN_MICROBATCHES
+    proc = process_batch(train_batch(g, objects), 1.0, train_config()["camera_dist"],
+                         zoo.FLAGSHIP_INPUT_SIZE, generator=g)
+    grids = {"decode": (objects, transforms.object_to_camera_grid(proc["out_gt"]["camera"], 16)),
+             "encode": (objects * TRAIN_IN,
+                        transforms.camera_to_object_grid(proc["in"]["camera"], 16))}
+    del proc
+    records = {}
+    for label, (nv, grid) in grids.items():
+        n, c = grid.shape[0], 256
+        shape = (nv, c, 16, 16, 16)
+        gout = torch.randn(n, c, 16, 16, 16, generator=g, device=dev)
+        for padding in ("border", "zeros"):
+            for dtype in (torch.float32, torch.bfloat16):
+                gd = gout.to(dtype)
+                out = fused_sample.grid_sample_3d_bwd_vol(grid, gd, shape, padding)
+                ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gd, shape, padding)
+                torch.cuda.synchronize()
+                err = rel_err(out, ref)
+                say(f"  K1-bwd-vol {label} NV={nv} N={n} C={c} 16^3 {padding} g "
+                    f"{str(dtype)[6:]}: rel err {err:.3g} (tol {FP32_TOL:.3g})")
+                if not err <= FP32_TOL:
+                    fail(f"K1-bwd-vol {label} {padding} {dtype} disagrees with plain")
+        ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, "border"))
+        plain = time_ms(lambda: fused_sample.grid_sample_3d_bwd_vol_plain(
+            grid, gout, shape, "border"), iters=3)
+        lib = time_ms(lib_bwd_vol(shape, grid, gout, "border"))
+        out = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, "border")
+        ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, shape, "border")
+        nbytes = (gout.numel() + grid.numel() + out.numel()) * 4
+        # 8 corners: a multiply and an add each per sample and channel,
+        # plus ~40 operations per sample for the taps.
+        b, by = bound_ms(nbytes, 16.0 * gout.numel() + 40.0 * grid[..., 0].numel())
+        say(f"  K1-bwd-vol {label}: {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
+            f"{plain:.3f} ms, aten backward + group sum {lib:.4f} ms")
+        if label == "decode":
+            records["K1bv"] = dict(
+                name="fused_sample_bwd_vol", route="cuda",
+                source="latentfusion_tpu_torch/csrc/fused_sample.cu",
+                replaces="latentfusion_tpu/ops/pallas_fused_sample.py:372",
+                max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=lib)
+        del gout, out, ref
+    del grids, grid
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_k3_shape(fused_sample, seed):
+    """K1's three kernels at a shape of K3 (ops/pallas_volume.py: an
+    unshared volume over 17^3): vol (4, 64, 32^3), grid (4, 32^3), fp32,
+    against their plain versions, timed beside F.grid_sample and aten's
+    backward."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    vol = torch.randn(4, 64, 32, 32, 32, generator=g, device=dev)
+    grid = torch.rand(4, 32, 32, 32, 3, generator=g, device=dev) * 2.4 - 1.2
+    gout = torch.randn(4, 64, 32, 32, 32, generator=g, device=dev)
+    pad = "border"
+    runs = {
+        "K1-fwd": (lambda: fused_sample.grid_sample_3d_fused(vol, grid, pad),
+                   lambda: fused_sample.grid_sample_3d_plain(vol, grid, pad),
+                   lambda: torch.nn.functional.grid_sample(
+                       vol, grid, mode="bilinear", padding_mode=pad, align_corners=False),
+                   (vol.numel() + grid.numel() + gout.numel()) * 4),
+        "K1-bwd-grid": (lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, pad),
+                        lambda: fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, pad),
+                        lambda: torch.ops.aten.grid_sampler_3d_backward(
+                            gout, vol, grid, 0, 1, False, [False, True]),
+                        (vol.numel() + 2 * grid.numel() + gout.numel()) * 4),
+        "K1-bwd-vol": (lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, vol.shape, pad),
+                       lambda: fused_sample.grid_sample_3d_bwd_vol_plain(
+                           grid, gout, vol.shape, pad),
+                       lambda: torch.ops.aten.grid_sampler_3d_backward(
+                           gout, vol, grid, 0, 1, False, [True, False]),
+                       (vol.numel() + grid.numel() + gout.numel()) * 4),
+    }
+    out = {}
+    for name, (kernel, plain, lib, nbytes) in runs.items():
+        err = rel_err(kernel(), plain())
+        torch.cuda.synchronize()
+        b, by = bound_ms(nbytes, 16.0 * gout.numel())
+        out[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, iters=3),
+                         library_ms=time_ms(lib), bound_ms=b, bound_by=by, rel_err=err)
+        say(f"  {name} at K3's shape vol (4, 64, 32^3), grid (4, 32^3), {pad}, float32: "
+            f"rel err {err:.3g} (tol {FP32_TOL:.3g}), {json.dumps(out[name])}")
+        if not err <= FP32_TOL:
+            fail(f"{name} at K3's shape disagrees with plain")
+    del vol, grid, gout
+    torch.cuda.empty_cache()
+    return out
+
+
 def load_views(path: Path, device):
     """A committed reference object as an Observation (16 views)."""
     from latentfusion_tpu_torch.camera import Camera
@@ -384,12 +539,14 @@ def drive_slice(label, model, objects, kernels, seed, profile):
 def reset_counters(kernels) -> None:
     fused_sample, lrelu_pnorm = kernels
     fused_sample.LAUNCHES = fused_sample.BWD_GRID_LAUNCHES = 0
+    fused_sample.BWD_VOL_LAUNCHES = 0
     lrelu_pnorm.LAUNCHES = lrelu_pnorm.BWD_LAUNCHES = 0
 
 
 def read_counters(kernels) -> dict:
     fused_sample, lrelu_pnorm = kernels
     return {"K1": fused_sample.LAUNCHES, "K1b": fused_sample.BWD_GRID_LAUNCHES,
+            "K1bv": fused_sample.BWD_VOL_LAUNCHES,
             "K2": lrelu_pnorm.LAUNCHES, "K2b": lrelu_pnorm.BWD_LAUNCHES}
 
 
@@ -446,7 +603,7 @@ def phase_pose_flagship(model, kernels, seed):
     # The first estimate is counted and checked; the second is timed.
     cams, best, stats, _, cem_counts, refine_counts, _, _ = estimate()
     counts = {k: cem_counts[k] + refine_counts[k] for k in cem_counts}
-    if not all(v > 0 for v in counts.values()):
+    if not all(counts[k] > 0 for k in ("K1", "K1b", "K2", "K2b")):
         fail(f"pose: a kernel was not launched on the pose path: {counts}")
     steps = stats["num_steps"]
     history = stats["loss_history"][:steps]
@@ -470,84 +627,67 @@ def phase_pose_flagship(model, kernels, seed):
         f"{json.dumps({k: v / steps for k, v in refine_counts.items()})})")
 
     zcams = cams[:N_REFINE].zoom(None, model.input_size, model.camera_dist)
-    gradient_check("flagship", fine, z, target, zcams, kernels)
+    gradient_check("flagship refinement step",
+                   lambda: fine.loss_and_grads(z, target, zcams),
+                   fine.model.photographer, kernels)
     say("  one refinement step (8 hypotheses, forward and backward), device time by kernel:")
     profile_step(lambda: fine.loss_and_grads(z, target, zcams))
     torch.cuda.empty_cache()
     return counts
 
 
-@contextlib.contextmanager
-def convs_perturbed(photographer, eps: float, seed: int):
-    """Inside, every convolution of ``photographer`` multiplies its output by
-    (1 + eps N(0, 1)) (forward hooks). Each K2 takes a convolution's output
-    and normalizes it, so its output moves by about eps relative too."""
-    from latentfusion_tpu_torch.modules.equalized import EqualizedConv
-
-    gens = {}
-
-    def hook(_module, _inputs, y):
-        g = gens.setdefault(y.device, torch.Generator(device=y.device).manual_seed(seed))
-        return y * (1 + eps * torch.randn(y.shape, generator=g, device=y.device))
-
-    handles = [m.register_forward_hook(hook) for m in photographer.modules()
-               if isinstance(m, EqualizedConv)]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
+def worst_rel(grads, ref) -> float:
+    """The largest of each tensor's max |a - b| over its reference's max |b|."""
+    return max(float((grads[k] - ref[k]).abs().max())
+               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
 
 
-def gradient_check(label, fine, z, target, zcams, kernels) -> None:
-    """One refinement step on the kernels against the same step on the plain
-    versions (``transforms`` and ``modules`` on their "torch" backends); each
-    camera gradient (log_quaternion, translation, viewport) is compared
-    relative to the largest magnitude of the reference's.
+def gradient_check(label, grads_fn, network, kernels) -> None:
+    """``grads_fn() -> (loss, {name: gradient})`` on the kernels against the
+    same call on the plain versions (``transforms`` and ``modules`` on their
+    "torch" backends), each gradient relative to its reference's largest
+    magnitude.
 
-    Gated at NET_TOL: the step's loss, and its camera gradient with the
-    forward shared (the kernels' forward, the plain backward formulas in
-    place of K1-bwd-grid and K2-bwd). Gated at FLOOR_FACTOR times its noise
-    floor: the camera gradient end to end. PixelNorm lifts near-zero
-    activations to unit scale and the depth terms pass a hard mask gate, so
-    that gradient jumps between discrete values with the activations' last
-    bits. Its floor is the largest of 6 draws of how far the plain gradient
-    moves when every convolution's output is multiplied by (1 + eps N(0, 1)),
-    3 draws for each eps of FLOOR_EPS."""
-    from latentfusion_tpu_torch import modules, transforms
+    Gated at NET_TOL: the loss, and the gradient with the forward shared
+    (the kernels' forward, the plain K1-bwd-grid, K1-bwd-vol and K2-bwd).
+    Gated at FLOOR_FACTOR times its noise floor: the gradient end to end.
+    PixelNorm lifts near-zero activations to unit scale, and the losses
+    pass hard gates (the refinement's mask, the training's top-k), so the
+    gradient jumps between discrete values with the activations' last bits.
+    Its floor is the largest of 6 draws of how far the plain gradient moves
+    when every convolution of ``network`` multiplies its output by (1 + eps
+    N(0, 1)), 3 draws for each eps of FLOOR_EPS."""
+    from latentfusion_tpu_torch import modules, testing, transforms
 
     fused_sample, lrelu_pnorm = kernels
-
-    def worst(g, ref):
-        return max(float((g[k] - ref[k]).abs().max())
-                   / max(float(ref[k].abs().max()), 1e-30) for k in ref)
-
-    loss_k, grads_k = fine.loss_and_grads(z, target, zcams)
-    _, grads_k2 = fine.loss_and_grads(z, target, zcams)
+    loss_k, grads_k = grads_fn()
+    _, grads_k2 = grads_fn()
     with mock.patch.object(fused_sample, "grid_sample_3d_bwd_grid",
                            fused_sample.grid_sample_3d_bwd_grid_plain), \
+            mock.patch.object(fused_sample, "grid_sample_3d_bwd_vol",
+                              fused_sample.grid_sample_3d_bwd_vol_plain), \
             mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd",
                               lrelu_pnorm.lrelu_pixel_norm_bwd_plain):
-        _, grads_s = fine.loss_and_grads(z, target, zcams)
+        _, grads_s = grads_fn()
     floors = []
-    with transforms.volume_sample_backend("torch"), \
-            modules.lrelu_pnorm_backend("torch"):
-        loss_p, grads_p = fine.loss_and_grads(z, target, zcams)
+    with transforms.volume_sample_backend("torch"), modules.lrelu_pnorm_backend("torch"):
+        loss_p, grads_p = grads_fn()
         for eps in FLOOR_EPS:
             for draw in range(3):
-                with convs_perturbed(fine.model.photographer, eps, draw):
-                    floors.append(worst(fine.loss_and_grads(z, target, zcams)[1], grads_p))
-    loss_err, shared_err = rel_err(loss_k, loss_p), worst(grads_k, grads_s)
-    grad_err, grad_tol = worst(grads_k, grads_p), FLOOR_FACTOR * max(floors)
-    say(f"  {label} refinement step, kernels vs plain: loss rel err {loss_err:.3g}, "
-        f"camera gradient with the forward shared {shared_err:.3g} (tol {NET_TOL}); "
-        f"end to end {grad_err:.3g}, noise floor (plain, convolutions perturbed by "
-        f"{FLOOR_EPS}) {json.dumps(floors)}, tol {FLOOR_FACTOR:g} x largest = "
-        f"{grad_tol:.3g}; kernels repeated {worst(grads_k2, grads_k):.3g}")
+                with testing.convs_perturbed(network, eps, draw):
+                    floors.append(worst_rel(grads_fn()[1], grads_p))
+    loss_err, shared_err = rel_err(loss_k, loss_p), worst_rel(grads_k, grads_s)
+    grad_err, grad_tol = worst_rel(grads_k, grads_p), FLOOR_FACTOR * max(floors)
+    say(f"  {label} ({len(grads_k)} gradients), kernels vs plain: loss rel err "
+        f"{loss_err:.3g}; gradient with the forward shared {shared_err:.3g} (tol "
+        f"{NET_TOL}); end to end {grad_err:.3g}, noise "
+        f"floor (plain, convolutions perturbed by {FLOOR_EPS}) {json.dumps(floors)}, "
+        f"tol {FLOOR_FACTOR:g} x largest = {grad_tol:.3g}; kernels repeated "
+        f"{worst_rel(grads_k2, grads_k):.3g}")
     if not max(loss_err, shared_err) <= NET_TOL:
-        fail(f"{label}: the refinement step on the kernels disagrees with the plain versions")
+        fail(f"{label}: the kernels disagree with the plain versions")
     if not grad_err <= grad_tol:
-        fail(f"{label}: the camera gradient on the kernels is beyond its noise floor")
+        fail(f"{label}: the gradient on the kernels is beyond its noise floor")
 
 
 def phase_pose_accuracy(model, kernels, seed):
@@ -584,9 +724,10 @@ def phase_pose_accuracy(model, kernels, seed):
         cams = coarse.estimate(z, target, generator=g)
         best, stats = fine.estimate(z, target, camera=cams[:16])
         if i == 0:
-            gradient_check("demo", fine, z, target,
-                           cams[:16].zoom(None, model.input_size, model.camera_dist),
-                           kernels)
+            zcams = cams[:16].zoom(None, model.input_size, model.camera_dist)
+            gradient_check("demo refinement step",
+                           lambda: fine.loss_and_grads(z, target, zcams),
+                           model.photographer, kernels)
         mc = metrics.camera_metrics(gt, cams[0], points, 1.0)
         mr = metrics.camera_metrics(gt, best[0], points, 1.0)
         ok = mr["add_s"] < 0.1 * ORACLE_DIAMETER
@@ -598,6 +739,98 @@ def phase_pose_accuracy(model, kernels, seed):
         f"({time.perf_counter() - t0:.1f} s for 8 targets)")
     if hits < 7:
         fail(f"pose accuracy: {hits}/8 targets within 0.1 diameter, fewer than 7")
+
+
+def train_grads(step, mods, batch, rotations):
+    """One step's loss and parameter gradients. The state's optimizer is SGD
+    at learning rate 0, so the weights stay as they are."""
+    from latentfusion_tpu_torch.train import step as tstep
+
+    state = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
+    _, scalars = step(state, batch, rotations=rotations)
+    return scalars["loss/generator/total"], {
+        f"{name}.{pname}": p.grad.clone() for name, m in mods.items()
+        for pname, p in m.named_parameters()}
+
+
+def phase_train(kernels, seed):
+    """The flagship recipe's generator step: gradient check, launches on one
+    step, ms per step, peak memory, a profile, and TRAIN_STEPS steps on a
+    pool of TRAIN_POOL batches with the held-out loss read every
+    TRAIN_EVERY steps. Returns the launch counts of one step."""
+    from torch import nn
+
+    from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.three import quaternion
+    from latentfusion_tpu_torch.train import step as tstep
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    mods = {"sculptor": zoo.flagship_sculptor(generator=gen),
+            "fuser": zoo.flagship_fuser(generator=gen),
+            "photographer": zoo.flagship_photographer(generator=gen)}
+    step = tstep.make_recon_train_step(mods["sculptor"], mods["fuser"],
+                                       mods["photographer"], config=train_config(),
+                                       num_microbatches=TRAIN_MICROBATCHES)
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    t0 = time.perf_counter()
+    pool = [train_batch(g) for _ in range(TRAIN_POOL)]
+    holdout = train_batch(g)
+    torch.cuda.synchronize()
+    say(f"  {TRAIN_POOL + 1} oracle batches of {TRAIN_BATCH} objects x ({TRAIN_IN} + "
+        f"{TRAIN_OUT}) views of 640x480 rendered in {time.perf_counter() - t0:.2f} s")
+    rotations = [quaternion.random(1, g) for _ in range(TRAIN_MICROBATCHES)]
+    gradient_check("training step", lambda: train_grads(step, mods, pool[0], rotations),
+                   nn.ModuleList(mods.values()), kernels)
+
+    adam = tstep.init_train_state(mods, tstep.make_optimizer("adam", 1e-3))
+    frozen = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
+    upright = [quaternion.identity(1, device=dev)] * TRAIN_MICROBATCHES
+
+    def held_out():
+        _, scalars = step(frozen, holdout, rotations=upright)
+        return {k.split("/")[-1]: float(v) for k, v in scalars.items()}
+
+    readings = [(0, held_out())]
+    reset_counters(kernels)
+    step(adam, pool[0], generator=g)
+    torch.cuda.synchronize()
+    counts = read_counters(kernels)
+    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+        fail(f"training: a kernel was not launched on the step: {counts}")
+    events = []
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS):
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, scalars = step(adam, pool[i % TRAIN_POOL], generator=g)
+        end.record()
+        events.append((start, end))
+        if (i + 1) % TRAIN_EVERY == 0:
+            readings.append((i + 1, held_out()))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s.elapsed_time(e) for s, e in events[1:1 + TRAIN_TIMED]]
+    say(f"  launches on one step: {json.dumps(counts)}")
+    say(f"  step (global batch {TRAIN_BATCH}, {TRAIN_MICROBATCHES} microbatches): "
+        f"{sum(step_ms) / len(step_ms):.1f} ms per step (CUDA events, steps 2-"
+        f"{1 + len(step_ms)}: {json.dumps([round(t, 1) for t in step_ms])}); "
+        f"{TRAIN_STEPS - 1} steps and {len(readings) - 1} held-out readings in "
+        f"{wall_s:.1f} s; peak memory {peak_gb:.2f} GB (max_memory_allocated from "
+        f"step 2 on, the batch pool included)")
+    say(f"  held-out loss by step: {json.dumps(readings)}")
+    if not all(np.isfinite(r["total"]) for _, r in readings):
+        fail("training: a held-out loss is not finite")
+    if not readings[-1][1]["total"] < readings[0][1]["total"]:
+        fail("training: the held-out loss did not fall")
+    say(f"  one training step (global batch {TRAIN_BATCH}), device time by kernel:")
+    profile_step(lambda: step(frozen, pool[0], rotations=upright))
+    del pool, holdout, mods, adam, frozen
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> None:
@@ -623,16 +856,19 @@ def main() -> None:
     objects = [(f"o{i}", FRAMES / f"refs_o{i}.npz") for i in (0, 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/6: device and kernel build")
+    say("== phase 1/7: device and kernel build")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
 
-    say("== phase 2/6: kernels against their plain versions")
+    say("== phase 2/7: kernels against their plain versions")
     records = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed))
+    records.update(phase_train_kernels(fused_sample, args.seed))
+    k3 = phase_k3_shape(fused_sample, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
+    say(f"   K1 at K3's shape: {json.dumps(k3)}")
 
-    say(f"== phase 3/6: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/7: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -642,7 +878,7 @@ def main() -> None:
                          profile=True)
     say(f"   flagship launches per object: {json.dumps(counts)}")
 
-    say(f"== phase 4/6: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/7: demo family, learned weights, render of {N_HYPOTHESES}")
     state = split_state_dict(from_jax_params(load_params_npz(
         DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
     demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
@@ -653,21 +889,30 @@ def main() -> None:
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/6: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/7: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed)
     say(f"   pose path launches: {json.dumps(pose_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say("== phase 6/6: pose accuracy, demo family, learned weights, 8 oracle targets")
+    say("== phase 6/7: pose accuracy, demo family, learned weights, 8 oracle targets")
     phase_pose_accuracy(demo, kernels, args.seed)
+    del demo
+    torch.cuda.empty_cache()
+
+    say(f"== phase 7/7: flagship training step, global batch {TRAIN_BATCH} in "
+        f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
+    train_counts = phase_train(kernels, args.seed)
+    say(f"   training step launches: {json.dumps(train_counts)}")
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
     for key in records:
-        records[key]["launches"] = pose_counts[key]
-    say(json.dumps({"kernels": [records[k] for k in ("K1", "K1b", "K2", "K2b")]}))
+        records[key]["launches_by_path"] = {"pose": pose_counts[key],
+                                            "train_step": train_counts[key]}
+        records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]
+    say(json.dumps({"kernels": [records[k] for k in ("K1", "K1b", "K1bv", "K2", "K2b")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

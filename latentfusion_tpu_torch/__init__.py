@@ -5,10 +5,13 @@ its module layout. It imports torch and numpy only. Entry points take an
 explicit ``device`` (default ``"cuda"``) and raise when no GPU is present
 unless the caller passes ``device="cpu"``.
 
-The two Pallas kernels on the build + render path are CUDA C++ kernels
-here (``csrc/``), built with ``nvcc`` at first use and bound with ctypes:
+The Pallas kernels on the ported paths (build + render, pose estimation,
+training) are CUDA C++ kernels here (``csrc/``), built with ``nvcc`` at
+first use and bound with ctypes:
 
-- ``ops.fused_sample``: trilinear volume sampler (K1 forward);
-- ``ops.lrelu_pnorm``: fused leaky-ReLU + PixelNorm (K2 forward).
+- ``ops.fused_sample``: trilinear volume sampler (K1 forward, d/dgrid and
+  d/dvolume);
+- ``ops.lrelu_pnorm``: fused leaky-ReLU + PixelNorm (K2 forward and
+  backward).
 """
 from .device import resolve_device  # noqa: F401

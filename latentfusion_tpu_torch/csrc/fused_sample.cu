@@ -1,4 +1,5 @@
-// K1: trilinear volume sampler for Hopper (sm_90a), forward and d/dgrid.
+// K1: trilinear volume sampler for Hopper (sm_90a), forward, d/dgrid and
+// d/dvol.
 //
 // Forward replaces: latentfusion_tpu/ops/pallas_fused_sample.py:_kernel_fwd,
 // the pallas_call of _fused_core.
@@ -54,6 +55,34 @@
 // the 8 corner values come from the L2-resident volume, and three fp32 sums
 // collect the gradient. Each thread writes its 3 floats once; no atomics,
 // so the result is deterministic.
+//
+// d/dvol (K1-bwd-vol) replaces: latentfusion_tpu/ops/pallas_fused_sample.py
+// :_kernel_bwd_vol, the second pallas_call of _fused_bwd. Training takes it:
+// camera_to_object for the Sculptor's camera volumes (NV = N) and
+// object_to_camera for the fused latent (one volume per object, read by its
+// contiguous block of N / NV views).
+//
+//   grid (N, K, 3) fp32; g (N, C, K) fp32 or bf16, dL/dout
+//   dvol (NV, C, D, H, W) fp32,
+//   dvol[v, c, j] = sum over n in group(v), k of tap(n, k, j) * g[n, c, k]
+//
+// tap is the forward's trilinear weight (same unnormalization, border clip
+// before the floor, zero outside the volume), so this is the forward's
+// transpose.
+//
+// What bounds it on an H100: the bytes of g. At the flagship training
+// decode shape (NV=4, N=96, C=256, 16^3 samples) g is 403 MB, about
+// 0.12 ms at 3.35 TB/s; dvol (17 MB) stays in L2.
+//
+// Design: the forward's thread layout, reversed. One thread per sample
+// rebuilds its 8 corner offsets and weights, then walks a chunk of
+// channels: it reads g coalesced across the warp and adds weight * g to the
+// 8 corners with fp32 atomicAdd (compiled to fire-and-forget reductions in
+// L2). The C entry point zeroes dvol first. Atomics make the order of each
+// voxel's sum change from run to run, so the result is not bit-reproducible:
+// it agrees with an ordered sum to fp32 rounding of about a hundred terms,
+// within 1e-5 of the largest value (the tolerance its tests state).
+// Corners of weight 0 (outside the volume) are skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -222,6 +251,58 @@ void launch_bwd_grid(const void* vol, const void* grid, const void* g,
       w, k, border);
 }
 
+template <typename GT>
+__global__ void __launch_bounds__(kThreads)
+fused_sample_bwd_vol_kernel(const float* __restrict__ grid,
+                            const GT* __restrict__ g,
+                            float* __restrict__ dvol, int64_t group,
+                            int64_t c, int d, int h, int w, int64_t k,
+                            bool border) {
+  const int64_t kk = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (kk >= k) return;
+  const int64_t n = blockIdx.y;
+  const int64_t c0 = (int64_t)blockIdx.z * kChannelsPerBlock;
+
+  const float* gr = grid + (n * k + kk) * 3;
+  int x0, x1, y0, y1, z0, z1;
+  float fx0, fx1, fy0, fy1, fz0, fz1;
+  axis_taps(gr[0], w, border, &x0, &x1, &fx0, &fx1);
+  axis_taps(gr[1], h, border, &y0, &y1, &fy0, &fy1);
+  axis_taps(gr[2], d, border, &z0, &z1, &fz0, &fz1);
+
+  const int o[8] = {(z0 * h + y0) * w + x0, (z0 * h + y0) * w + x1,
+                    (z0 * h + y1) * w + x0, (z0 * h + y1) * w + x1,
+                    (z1 * h + y0) * w + x0, (z1 * h + y0) * w + x1,
+                    (z1 * h + y1) * w + x0, (z1 * h + y1) * w + x1};
+  const float wt[8] = {fz0 * fy0 * fx0, fz0 * fy0 * fx1, fz0 * fy1 * fx0,
+                       fz0 * fy1 * fx1, fz1 * fy0 * fx0, fz1 * fy0 * fx1,
+                       fz1 * fy1 * fx0, fz1 * fy1 * fx1};
+
+  const int64_t j = (int64_t)d * h * w;
+  float* dst = dvol + ((n / group) * c + c0) * j;
+  const GT* gp = g + (n * c + c0) * k + kk;
+  const int cn = (int)min((int64_t)kChannelsPerBlock, c - c0);
+  for (int ci = 0; ci < cn; ++ci) {
+    const float gv = load_f(gp + ci * k);
+    float* vc = dst + ci * j;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (wt[t] != 0.f) atomicAdd(vc + o[t], wt[t] * gv);
+    }
+  }
+}
+
+template <typename GT>
+void launch_bwd_vol(const void* grid, const void* g, void* dvol, int64_t nv,
+                    int64_t n, int64_t c, int d, int h, int w, int64_t k,
+                    bool border, cudaStream_t stream) {
+  const dim3 blocks((unsigned)((k + kThreads - 1) / kThreads), (unsigned)n,
+                    (unsigned)((c + kChannelsPerBlock - 1) / kChannelsPerBlock));
+  fused_sample_bwd_vol_kernel<GT><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(grid), static_cast<const GT*>(g),
+      static_cast<float*>(dvol), n / nv, c, d, h, w, k, border);
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,6 +351,28 @@ int lf_fused_sample_bwd_grid(const void* vol, const void* grid, const void* g,
   else if (vol_dtype == 1 && g_dtype == 1)
     launch_bwd_grid<__nv_bfloat16, __nv_bfloat16>(vol, grid, g, dgrid, nv, n,
                                                   c, d, h, w, k, b, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// dtype code of g: 0 = fp32, 1 = bf16. Zeroes dvol (NV * C * D * H * W
+// floats) on the stream, then scatters into it. Returns cudaGetLastError()
+// after launch.
+int lf_fused_sample_bwd_vol(const void* grid, const void* g, void* dvol,
+                            int64_t nv, int64_t n, int64_t c, int64_t d,
+                            int64_t h, int64_t w, int64_t k, int border,
+                            int g_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)(nv * c * d * h * w) * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(dvol, 0, bytes, s);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0 || c == 0 || k == 0) return 0;
+  const bool b = border != 0;
+  if (g_dtype == 0)
+    launch_bwd_vol<float>(grid, g, dvol, nv, n, c, d, h, w, k, b, s);
+  else if (g_dtype == 1)
+    launch_bwd_vol<__nv_bfloat16>(grid, g, dvol, nv, n, c, d, h, w, k, b, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -306,20 +306,41 @@ class CrossEntropyPoseEstimator(PoseEstimator):
                       log_quaternion=params[:, 3:], width=camera_init.width,
                       height=camera_init.height, device=camera_init.device)
 
-    def _sample_poses(self, sample_gmm, num_draw, generator):
-        params = gmm_lib.sample(sample_gmm, num_draw, generator)
-        noise = torch.randn(num_draw, 6, generator=generator,
-                            device=generator.device).to(params.device)
+    def _sample_poses(self, sample_gmm, num_draw, generator, draws):
+        if draws is None:
+            params = gmm_lib.sample(sample_gmm, num_draw, generator)
+            noise = torch.randn(num_draw, 6, generator=generator,
+                                device=generator.device).to(params.device)
+        else:
+            comp, eps, noise = draws.sample(sample_gmm.weights, num_draw)
+            params = gmm_lib.sample_from(sample_gmm, comp, eps)
         std = torch.tensor([self.translation_std] * 3 + [self.quaternion_std] * 3,
                            device=params.device)
         return params + noise * std
 
+    @staticmethod
+    def _fit(data, fit, draws, sample_weights=None):
+        init_means = None
+        if draws is not None:
+            w = (torch.ones(len(data), device=data.device) if sample_weights is None
+                 else sample_weights)
+            init_means = data[draws.init_index(w / w.sum())]
+        return gmm_lib.fit(data, sample_weights=sample_weights,
+                           init_means=init_means, **fit)
+
     @torch.no_grad()
-    def _estimate(self, z_obj, target_obs, generator=None, cameras=None):
+    def _estimate(self, z_obj, target_obs, generator=None, cameras=None,
+                  draws=None):
         """Returns the top ``ranking_size`` cameras, best first. The initial
         GMM is fitted to ``cameras`` or, by default, to
         ``num_gmm_components * num_samples`` sunflower cameras around the
-        initial translation."""
+        initial translation.
+
+        ``draws``, for tests that hold the loop to another implementation's
+        random stream, replaces the generator's draws inside the loop: its
+        ``init_index(weights)`` gives the data indices at which each fit
+        starts its means, and its ``sample(weights, n)`` each iteration's
+        component indices (n,), unit normals (n, 6) and pose noise (n, 6)."""
         generator = self._generator(generator)
         if cameras is not None:
             camera_init = cameras[0]
@@ -334,11 +355,11 @@ class CrossEntropyPoseEstimator(PoseEstimator):
         elites = self._elite_table()
         fit = dict(n_components=self.num_gmm_components, generator=generator,
                    n_iter=self.gmm_em_iters)
-        prev_gmm = cur_gmm = gmm_lib.fit(self._camera_to_params(init_cameras), **fit)
+        prev_gmm = cur_gmm = self._fit(self._camera_to_params(init_cameras), fit, draws)
         ranking = init_ranking(self.ranking_size, camera_init.device)
         for step in range(self.num_iters):
             sample_gmm = gmm_lib.blend(prev_gmm, cur_gmm, self.learning_rate)
-            params = self._sample_poses(sample_gmm, num_draw, generator)
+            params = self._sample_poses(sample_gmm, num_draw, generator, draws)
             cameras = self._params_to_camera(params, camera_init)
             if self.sample_flipped:
                 cameras = Camera.cat([cameras] + [
@@ -349,8 +370,8 @@ class CrossEntropyPoseEstimator(PoseEstimator):
             rank_of = torch.empty_like(order)
             rank_of[order] = torch.arange(order.shape[0], device=order.device)
             elite_w = (rank_of < elites[step]).float()
-            new_gmm = gmm_lib.fit(self._camera_to_params(cameras),
-                                  sample_weights=elite_w, **fit)
+            new_gmm = self._fit(self._camera_to_params(cameras), fit, draws,
+                                sample_weights=elite_w)
             ranking, _ = update_ranking(ranking, loss, cameras, step)
             prev_gmm, cur_gmm = cur_gmm, new_gmm
         return ranking_to_camera(ranking, camera_init)

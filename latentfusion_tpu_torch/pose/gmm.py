@@ -70,5 +70,9 @@ def sample(gmm: DiagGMM, n: int, generator: torch.Generator) -> torch.Tensor:
     probs = gmm.weights.clamp_min(1e-30).to(dev)
     comp = torch.multinomial(probs, n, replacement=True, generator=generator)
     eps = torch.randn(n, gmm.means.shape[-1], generator=generator, device=dev)
-    comp, eps = comp.to(gmm.means.device), eps.to(gmm.means.device)
+    return sample_from(gmm, comp.to(gmm.means.device), eps.to(gmm.means.device))
+
+
+def sample_from(gmm: DiagGMM, comp: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """Draws from given component indices (n,) and unit normals (n, D)."""
     return gmm.means[comp] + eps * torch.sqrt(gmm.covariances[comp])

@@ -1,20 +1,34 @@
 """An analytic ellipsoid renderer that stands in for ``LatentFusionModel``
 in the estimators' tests and accuracy rigs (counterpart of the ellipsoid
 half of ``latentfusion_tpu/testing.py``). Closed-form ray casting, so the
-renders are exact and differentiable with respect to the camera."""
+renders are exact and differentiable with respect to the camera.
+
+``render_training_batch`` renders raw training batches of random
+ellipsoids, in the layout ``recon.utils.process_batch`` takes, for training
+without a mesh dataset. ``convs_perturbed`` measures a gradient's noise
+floor."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch import nn
 
 from . import three
 from .camera import Camera
 from .device import resolve_device
+from .modules.equalized import EqualizedConv
 from .observation import Observation
 from .three import quaternion as quat
 
 MASK_SHARPNESS = 400.0  # soft-mask logits per unit of the ray's discriminant
+# Training batches: the mesh dataset's camera bounds (x_bound and z_bound of
+# SyntheticDataset, latentfusion_tpu/data/synthetic.py:188), and semi-axes
+# near half of its object sizes (size_jitter (0.5, 1.0), :189).
+X_BOUND = (-0.5, 0.5)
+Z_BOUND = (1.5, 3.0)
+AXES_RANGE = (0.2, 0.45)
 
 
 def _rays(camera: Camera, out_size):
@@ -135,3 +149,73 @@ def make_camera(n: int = 1, z: float = 3.90625, f: float = 250.0,
     trans = torch.tensor([[0.0, 0.0, z]], device=device).repeat(n, 1)
     return Camera(intrinsic, three.to_extrinsic_matrix(trans, quats.to(device)),
                   width=width, height=height, device=device)
+
+
+def render_training_batch(generator: torch.Generator, batch_size: int,
+                          num_input_views: int, num_output_views: int,
+                          width: int = 640, height: int = 480,
+                          device="cuda") -> dict:
+    """A raw training batch of ``batch_size`` ellipsoids, each with semi-axes
+    drawn uniformly from ``AXES_RANGE``, seen by ``num_input_views +
+    num_output_views`` full-frame cameras (f = 615 at 640 pixels wide):
+    uniform random rotations, the object at x in ``X_BOUND``, y in its
+    share of the frame's height, and depth in ``Z_BOUND``, as the mesh
+    dataset draws its cameras. Returns groups ``in`` and ``in_gt`` (the same input views)
+    and ``out_gt``, each ``{render (B, V, 3, H, W) shaded in [0, 1], mask
+    (B, V, H, W), depth (B, V, H, W) metric with 0 off the object,
+    extrinsic (B, V, 4, 4), intrinsic (B, V, 3, 4)}``. Every draw comes from
+    ``generator``; the renders are made on ``device``."""
+    device = resolve_device(device)
+    gdev = generator.device
+    views = num_input_views + num_output_views
+    n = batch_size * views
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, device=gdev)
+        return (lo + u * (hi - lo)).to(device)
+
+    axes = uniform((batch_size, 3), *AXES_RANGE)
+    quats = quat.random(n, generator).to(device)
+    y_bound = (X_BOUND[0] * height / width, X_BOUND[1] * height / width)
+    trans = torch.stack((uniform(n, *X_BOUND), uniform(n, *y_bound),
+                         uniform(n, *Z_BOUND)), dim=-1)
+    f = 615.0 * width / 640.0
+    intrinsic = torch.tensor([[f, 0.0, width / 2, 0.0], [0.0, f, height / 2, 0.0],
+                              [0.0, 0.0, 1.0, 0.0]], device=device).expand(n, 3, 4)
+    camera = Camera(intrinsic, three.to_extrinsic_matrix(trans, quats),
+                    width=width, height=height, device=device)
+    renders, depths, masks = [], [], []
+    for b, obj_axes in enumerate(axes.tolist()):
+        cam = camera[b * views:(b + 1) * views]
+        depth, mask = render_ellipsoid_full(cam, obj_axes)
+        renders.append(render_ellipsoid_color(cam, depth, mask, obj_axes))
+        depths.append(depth[:, 0])
+        masks.append(mask[:, 0])
+    full = {"render": torch.stack(renders), "depth": torch.stack(depths),
+            "mask": torch.stack(masks),
+            "extrinsic": camera.extrinsic.reshape(batch_size, views, 4, 4),
+            "intrinsic": intrinsic.reshape(batch_size, views, 3, 4)}
+    inputs = {k: v[:, :num_input_views] for k, v in full.items()}
+    return {"in": inputs, "in_gt": dict(inputs),
+            "out_gt": {k: v[:, num_input_views:] for k, v in full.items()}}
+
+
+@contextlib.contextmanager
+def convs_perturbed(network: nn.Module, eps: float, seed: int):
+    """Inside, every convolution of ``network`` multiplies its output by
+    (1 + eps N(0, 1)) (forward hooks; one generator per device, seeded with
+    ``seed``). Each K2 takes a convolution's output and normalizes it, so
+    its output moves by about eps relative too."""
+    gens = {}
+
+    def hook(_module, _inputs, y):
+        g = gens.setdefault(y.device, torch.Generator(device=y.device).manual_seed(seed))
+        return y * (1 + eps * torch.randn(y.shape, generator=g, device=y.device))
+
+    handles = [m.register_forward_hook(hook) for m in network.modules()
+               if isinstance(m, EqualizedConv)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()

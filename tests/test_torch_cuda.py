@@ -1,10 +1,11 @@
-"""The port's CUDA kernels (K1 forward and d/dgrid, K2 forward and
-backward) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 forward, d/dgrid and d/dvolume, K2 forward
+and backward) against their plain PyTorch versions on the card.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false and
 run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
 
-Tolerances: fp32 outputs 1e-5 (same arithmetic, other summation order);
-bf16 outputs one bf16 rounding step, 2^-7 relative to the largest value.
+Tolerances: fp32 outputs 1e-5 (same arithmetic, other summation order; for
+K1-bwd-vol an order that its atomics change from run to run); bf16 outputs
+one bf16 rounding step, 2^-7 relative to the largest value.
 """
 import numpy as np
 import pytest
@@ -87,6 +88,28 @@ def test_k1_bwd_grid_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nv,n,c,k", [
+    (1, 8, 16, (16, 16, 16)), (3, 6, 24, (5, 7, 9)), (2, 2, 20, (4, 4, 4)),
+    (4, 96, 256, (16, 16, 16)),   # training decode: a latent per object, 24 views
+    (32, 32, 256, (16, 16, 16)),  # training encode: one camera volume per view
+], ids=["small_shared", "small_groups", "small_unshared", "train_decode", "train_encode"])
+def test_k1_bwd_vol_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, k):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
+    gout = torch.randn(n, c, *k, generator=g, device=cuda).to(dtype)
+    shape = (nv, c, 16, 16, 16)
+    before = fused_sample.BWD_VOL_LAUNCHES
+    dvol = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding_mode)
+    torch.cuda.synchronize()
+    assert fused_sample.BWD_VOL_LAUNCHES == before + 1
+    assert dvol.dtype == torch.float32 and dvol.shape == shape
+    ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, shape, padding_mode)
+    assert _err(dvol, ref) <= FP32_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33)])
 def test_k2_bwd_kernel_matches_plain(cuda, dtype, shape):
@@ -106,8 +129,8 @@ def test_k2_bwd_kernel_matches_plain(cuda, dtype, shape):
 @pytest.mark.cuda
 def test_autograd_through_kernels_matches_plain(cuda):
     """Gradients through the two autograd Functions (forward and backward
-    kernels) agree with autograd through the plain forward versions; d/dvol
-    is refused, and a direct call of a forward kernel on a tensor that
+    kernels, d/dvolume included) agree with autograd through the plain
+    forward versions, and a direct call of a forward kernel on a tensor that
     requires a gradient is refused rather than cut out of the graph."""
     g = torch.Generator(device=cuda).manual_seed(0)
     vol = torch.randn(1, 24, 8, 8, 8, generator=g, device=cuda)
@@ -127,9 +150,13 @@ def test_autograd_through_kernels_matches_plain(cuda):
     assert lrelu_pnorm.BWD_LAUNCHES == k2 + 1
     ref, = torch.autograd.grad(lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)[0], x, gx)
     assert _err(d, ref) <= FP32_TOL
-    out = fused_sample.grid_sample_3d(vol.clone().requires_grad_(), grid.detach())
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        out.sum().backward()
+    vol_t = vol.clone().requires_grad_()
+    k1 = fused_sample.BWD_VOL_LAUNCHES
+    dv, dg = torch.autograd.grad(fused_sample.grid_sample_3d(vol_t, grid), (vol_t, grid), gs)
+    assert fused_sample.BWD_VOL_LAUNCHES == k1 + 1
+    ref_v, ref_g = torch.autograd.grad(fused_sample.grid_sample_3d_plain(vol_t, grid),
+                                       (vol_t, grid), gs)
+    assert _err(dv, ref_v) <= FP32_TOL and _err(dg, ref_g) <= FP32_TOL
     with pytest.raises(RuntimeError, match="not differentiable"):
         fused_sample.grid_sample_3d_fused(vol, grid)
     with pytest.raises(RuntimeError, match="not differentiable"):

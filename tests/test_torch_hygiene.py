@@ -38,6 +38,9 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"latentfusion_tpu_torch/losses.py",
+            "latentfusion_tpu_torch/train/step.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -108,5 +111,8 @@ def test_kernel_wrappers_refuse_other_devices():
     grid = torch.zeros(1, 2, 2, 2, 3, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_sample.grid_sample_3d_fused(vol, grid)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_sample.grid_sample_3d_bwd_vol(grid, torch.zeros(1, 4, 2, 2, 2, device="meta"),
+                                            vol.shape)
     with pytest.raises(ValueError, match="unsupported device"):
         lrelu_pnorm.lrelu_pixel_norm_fwd(torch.zeros(2, 4, 3, device="meta"), 0.2, 1e-8)

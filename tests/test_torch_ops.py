@@ -1,6 +1,7 @@
 """The port's 3D math, camera, 2D resampling, volume transforms and the
-plain versions of its kernels (K1 forward and d/dgrid, K2 forward and
-backward), held against the JAX package on the same numpy inputs (CPU).
+plain versions of its kernels (K1 forward, d/dgrid and d/dvolume, K2
+forward and backward), held against the JAX package on the same numpy
+inputs (CPU).
 
 Tolerances (fp32): 1e-5 for ops, 2e-4 for geometry (camera matrices, crop
 boxes, pixel coordinates, which pass through trig and divisions of
@@ -24,6 +25,7 @@ from latentfusion_tpu.ops.interpolate import interpolate as j_interpolate
 from latentfusion_tpu.ops.grid_sample import grid_sample_2d as j_grid_sample_2d
 from latentfusion_tpu.ops.pallas_fused_sample import grid_sample_3d_fused as j_fused
 from latentfusion_tpu.ops.pallas_lrelu_pnorm import lrelu_pixel_norm_pallas
+from latentfusion_tpu.ops.pallas_volume import grid_sample_3d_pallas
 from latentfusion_tpu.three import core as jcore
 from latentfusion_tpu.three import orientation as jorientation
 from latentfusion_tpu.three import quaternion as jquat
@@ -474,21 +476,103 @@ def test_k1_bwd_grid_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, ca
 
 
 def test_k1_function_backward_on_cpu(rng):
-    """grid_sample_3d (the autograd Function) on CPU: its gradient is the
-    plain K1-bwd-grid, no kernel is counted, and d/dvolume raises."""
+    """grid_sample_3d (the autograd Function) on CPU: its gradients are the
+    plain K1-bwd-grid and K1-bwd-vol, each only where asked for, and no
+    kernel is counted."""
     vol, grid = _k1_inputs(rng, 1, 3, k=(4, 5, 6))
     grid_t = torch.from_numpy(grid).requires_grad_()
-    before = (fused_sample.LAUNCHES, fused_sample.BWD_GRID_LAUNCHES)
+    counters = ("LAUNCHES", "BWD_GRID_LAUNCHES", "BWD_VOL_LAUNCHES")
+    before = [getattr(fused_sample, c) for c in counters]
     out = fused_sample.grid_sample_3d(torch.from_numpy(vol), grid_t, "border")
     g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
     dgrid, = torch.autograd.grad(out, grid_t, g)
     close(dgrid, fused_sample.grid_sample_3d_bwd_grid_plain(
         torch.from_numpy(vol), grid_t.detach(), g, "border"), 0)
-    assert (fused_sample.LAUNCHES, fused_sample.BWD_GRID_LAUNCHES) == before
     vol_t = torch.from_numpy(vol).requires_grad_()
-    out = fused_sample.grid_sample_3d(vol_t, torch.from_numpy(grid), "zeros")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        out.sum().backward()
+    out = fused_sample.grid_sample_3d(vol_t, grid_t, "zeros")
+    dvol, dgrid = torch.autograd.grad(out, (vol_t, grid_t), g)
+    close(dvol, fused_sample.grid_sample_3d_bwd_vol_plain(
+        grid_t.detach(), g, vol.shape, "zeros"), 0)
+    close(dgrid, fused_sample.grid_sample_3d_bwd_grid_plain(
+        torch.from_numpy(vol), grid_t.detach(), g, "zeros"), 0)
+    assert [getattr(fused_sample, c) for c in counters] == before
+
+
+# ----------------------------------------------------- K1-bwd-vol plain
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("nv,n", [(1, 4), (2, 4), (3, 3)],
+                         ids=["shared_batch1", "shared_groups", "unshared"])
+def test_k1_bwd_vol_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, nv, n):
+    """d/dvolume with the grid held fixed, C=128, 8^3 volumes, grids
+    reaching outside [-1, 1]: the plain K1-bwd-vol against jax.vjp of the
+    Pallas kernel (interpret mode), torch autograd of the plain forward, and
+    autograd of F.grid_sample on the volume repeated to N, summed over each
+    volume's group. Covers NV = 1 and 1 < NV < N (the shared-volume cases
+    of tests/test_fused_sample.py) and NV = N."""
+    vol, grid = _k1_inputs(rng, nv, n, c=128)
+    g = rng.randn(n, 128, 8, 8, 8).astype(np.float32)
+    out = fused_sample.grid_sample_3d_bwd_vol_plain(
+        torch.from_numpy(grid), torch.from_numpy(g), vol.shape, padding_mode)
+    assert out.shape == vol.shape and out.dtype == torch.float32
+    _, vjp = jax.vjp(lambda v: j_fused(v, jnp.asarray(grid), padding_mode=padding_mode),
+                     jnp.asarray(vol))
+    close_rel(out, vjp(jnp.asarray(g))[0], OPS_TOL)
+    vol_t = torch.from_numpy(vol).requires_grad_()
+    fwd = fused_sample.grid_sample_3d_plain(vol_t, torch.from_numpy(grid), padding_mode)
+    close_rel(out, torch.autograd.grad(fwd, vol_t, torch.from_numpy(g))[0], OPS_TOL)
+    vol_n = torch.from_numpy(vol).repeat_interleave(n // nv, 0).requires_grad_()
+    fwd = torch.nn.functional.grid_sample(vol_n, torch.from_numpy(grid), mode="bilinear",
+                                          padding_mode=padding_mode, align_corners=False)
+    d_n, = torch.autograd.grad(fwd, vol_n, torch.from_numpy(g))
+    close_rel(out, d_n.reshape(nv, n // nv, *vol.shape[1:]).sum(1), OPS_TOL)
+
+
+def test_k1_bwd_vol_wrapper_on_cpu_is_the_plain_version(rng):
+    vol, grid = _k1_inputs(rng, 2, 4)
+    g = torch.from_numpy(rng.randn(4, 16, 8, 8, 8).astype(np.float32))
+    before = fused_sample.BWD_VOL_LAUNCHES
+    out = fused_sample.grid_sample_3d_bwd_vol(torch.from_numpy(grid), g, vol.shape, "border")
+    close(out, fused_sample.grid_sample_3d_bwd_vol_plain(
+        torch.from_numpy(grid), g, vol.shape, "border"), 0)
+    assert fused_sample.BWD_VOL_LAUNCHES == before
+    with pytest.raises(ValueError, match="does not match"):
+        fused_sample.grid_sample_3d_bwd_vol(torch.from_numpy(grid), g[:, :8], vol.shape)
+    with pytest.raises(ValueError, match="must divide"):
+        fused_sample.grid_sample_3d_bwd_vol(torch.from_numpy(grid), g, (3, *vol.shape[1:]))
+
+
+# ------------------------------------------- K3's shapes served by K1
+K3_CASES = {
+    # tests/test_pallas_volume.py:13, :22, :31 and :43, then one volume
+    # over 17^3, where the JAX package leaves K1 for K3 on a TPU.
+    "matches_gather": ((2, 4, 8, 8, 8), (2, 6, 6, 6), 2.4),
+    "large_volume_blocks": ((1, 2, 16, 16, 16), (1, 4, 4, 4), 2.0),
+    "gradients": ((1, 2, 8, 8, 8), (1, 3, 3, 3), 1.6),
+    "vjp": ((2, 3, 8, 6, 10), (2, 4, 3, 5), 2.4),
+    "over_17": ((1, 4, 20, 20, 20), (1, 6, 6, 6), 2.4),
+}
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k1_plain_serves_k3_pallas_volume(rng, padding_mode, case):
+    """K3 (the tiled sampler of ops/pallas_volume.py, interpret mode) takes
+    unshared volumes (NV = N) of any size; the port serves its shapes with
+    K1. The plain K1 forward, d/dgrid and d/dvolume against K3's forward
+    and its jax.vjp."""
+    vol_shape, grid_shape, spread = K3_CASES[case]
+    vol = rng.randn(*vol_shape).astype(np.float32)
+    grid = (rng.rand(*grid_shape, 3) * spread - spread / 2).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda v, gr: grid_sample_3d_pallas(v, gr, padding_mode),
+                         jnp.asarray(vol), jnp.asarray(grid))
+    g = rng.randn(*out_j.shape).astype(np.float32)
+    dvol_j, dgrid_j = vjp(jnp.asarray(g))
+    vol_t, grid_t, g_t = torch.from_numpy(vol), torch.from_numpy(grid), torch.from_numpy(g)
+    close_rel(fused_sample.grid_sample_3d_plain(vol_t, grid_t, padding_mode), out_j, OPS_TOL)
+    close_rel(fused_sample.grid_sample_3d_bwd_vol_plain(grid_t, g_t, vol.shape, padding_mode),
+              dvol_j, OPS_TOL)
+    close_rel(fused_sample.grid_sample_3d_bwd_grid_plain(vol_t, grid_t, g_t, padding_mode),
+              dgrid_j, OPS_TOL)
 
 
 # -------------------------------------------------------- K2-bwd plain
