@@ -12,8 +12,14 @@ line after it ends:
 2. kernels: each kernel against its plain PyTorch version at the shapes of
    the build + render path, of the refinement backward and of the training
    step (K1-bwd-vol on the flagship recipe's decode and encode grids), with
-   kernel, plain and library times (CUDA events, warm-up excluded); then K1
-   at a shape of the tiled sampler K3 (volumes over 17^3), which K1 serves.
+   kernel, plain and library times (device time by torch.profiler, warm-up
+   excluded; the redesigned kernels also by CUDA events back to back): K1-fwd
+   at the render (128 hypotheses) and refinement (8) shapes, K2-bwd at all
+   8 shapes of a refinement step, each run twice for the same bits, as a
+   table with its launch-weighted sum per step. Then K1 at a shape of the
+   tiled sampler K3 (volumes over 17^3), which K1 serves, and K1-fwd's
+   gather kernel (volumes whose channel does not fit in shared memory) at
+   vol (1, 8, 48^3); each K1-fwd timing names the kernel that served it.
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -25,9 +31,14 @@ line after it ends:
 5. pose, flagship: the latent of views 0-14 of refs_o0, then the pose of
    view 15 (known) by CEM (configs/cross_entropy_quick.toml), then gradient
    refinement (configs/adam_quick.toml); the launch counters must show all
-   four kernels on this path. One refinement step must agree with the
+   four kernels on this path. The refinement runs again from the first
+   run's coarse cameras; whether the final poses are the same bits is
+   printed, with the ops that torch's deterministic-algorithms check flags
+   in one step. One step is recorded: K2-bwd's calls must match phase 2's
+   table, and the backward of each of the decoder's linear resizes, run
+   twice, must give the same bits. One refinement step must agree with the
    plain versions (see gradient_check). One refinement step is profiled:
-   device time by kernel.
+   device time by kernel, and K2-bwd's total beside phase 2's sum.
 6. pose accuracy, demo family with the learned weights: the latent of 16
    shaded views of the analytic ellipsoid, then CEM + refinement on 8
    seeded target poses; ADD-S within a tenth of the diameter on at least 7.
@@ -62,6 +73,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 ROOT = Path(__file__).resolve().parent
 FRAMES = ROOT / "artifacts" / "serving" / "frames"
@@ -87,6 +99,12 @@ ORACLE_DIAMETER = 2 * max(ORACLE_AXES)
 TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
 TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 40, 10
 TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
+# K2-bwd's calls in one flagship refinement step (8 hypotheses): x's shape
+# and calls per step (phase 5 checks them against a step).
+REFINE_K2_CALLS = (((8, 256, 16, 16, 16), 2), ((8, 256, 16, 16), 3),
+                   ((8, 512, 16, 16), 2), ((8, 512, 8, 8), 4), ((8, 512, 4, 4), 2),
+                   ((8, 196, 32, 32), 2), ((8, 128, 64, 64), 2),
+                   ((8, 64, 128, 128), 2))
 
 
 def say(*parts) -> None:
@@ -103,7 +121,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """ms per call of ``fn`` run back to back, by CUDA events: the device's
+    time or, where the host queues work slower than the device runs it,
+    the host's."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -114,6 +135,24 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: the summed device time of the kernels
+    it launches (torch.profiler), warm-up excluded. A wrapper's host time
+    (tens of microseconds a call) would hide a short kernel from CUDA events
+    timed back to back."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -144,8 +183,9 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
     records = {}
 
     # K1 on the grids of the flagship path for object o0: decode (one
-    # shared latent, 128 cameras) and encode (16 views, each its own
-    # volume). The volumes are random; the grids set the access pattern.
+    # shared latent, 128 cameras for a CEM render, the first 8 for a
+    # refinement step) and encode (16 views, each its own volume). The
+    # volumes are random; the grids set the access pattern.
     obs = load_views(FRAMES / "refs_o0.npz", dev)
     size = zoo.FLAGSHIP_INPUT_SIZE
     decode_grid = transforms.object_to_camera_grid(
@@ -153,7 +193,10 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
     encode_grid = transforms.camera_to_object_grid(
         obs.camera.zoom(None, size, CAMERA_DIST), 16)
     del obs
-    for label, nv, grid in (("decode", 1, decode_grid), ("encode", 16, encode_grid)):
+    k1_table = []
+    for label, nv, grid in (("render", 1, decode_grid),
+                            ("refine", 1, decode_grid[:N_REFINE].contiguous()),
+                            ("encode", 16, encode_grid)):
         n, c = grid.shape[0], 256
         vol32 = torch.randn(nv, c, 16, 16, 16, generator=g, device=dev)
         for padding in ("border", "zeros"):
@@ -164,28 +207,22 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
                 torch.cuda.synchronize()
                 err = rel_err(out, ref)
                 tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-                abs_err = float((out.float() - ref.float()).abs().max())
                 say(f"  K1 {label} NV={nv} N={n} C={c} 16^3 {padding} "
                     f"{str(dtype)[6:]}: rel err {err:.3g} (tol {tol:.3g})")
                 if not err <= tol:
                     fail(f"K1 {label} {padding} {dtype} disagrees with plain")
-                if label == "decode" and padding == "border" and dtype == torch.float32:
-                    ms = time_ms(lambda: fused_sample.grid_sample_3d_fused(vol, grid, padding))
-                    plain = time_ms(lambda: fused_sample.grid_sample_3d_plain(vol, grid, padding), iters=3)
-                    vol_n = vol.expand(n, -1, -1, -1, -1)
-                    lib = time_ms(lambda: torch.nn.functional.grid_sample(
-                        vol_n, grid, mode="bilinear", padding_mode=padding,
-                        align_corners=False))
-                    nbytes = vol.numel() * 4 + grid.numel() * 4 + out.numel() * 4
-                    # 8 multiply-adds per output + ~40 operations per sample.
-                    flops = 16.0 * out.numel() + 40.0 * grid[..., 0].numel()
-                    b, by = bound_ms(nbytes, flops)
-                    records["K1"] = dict(
-                        name="fused_sample_fwd", route="cuda",
-                        source="latentfusion_tpu_torch/csrc/fused_sample.cu",
-                        replaces="latentfusion_tpu/ops/pallas_fused_sample.py:314",
-                        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=by, library_ms=lib)
+        if label in ("render", "refine"):
+            vol = vol32
+            row = time_k1(fused_sample, vol, grid, "border", f"{label} NV={nv} N={n} C={c} 16^3")
+            k1_table.append(row)
+            if label == "render":
+                records["K1"] = dict(
+                    name="fused_sample_fwd", route="cuda",
+                    source="latentfusion_tpu_torch/csrc/fused_sample.cu",
+                    replaces="latentfusion_tpu/ops/pallas_fused_sample.py:314",
+                    max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"])
         del vol32, vol, out, ref
     del decode_grid, encode_grid, grid
 
@@ -217,7 +254,33 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
             del x, y, inv, y_ref, inv_ref
     torch.cuda.empty_cache()
-    return records
+    return records, k1_table
+
+
+def time_k1(fused_sample, vol, grid, padding, label):
+    """K1-fwd (fp32 out) against its plain version and F.grid_sample: one
+    row of the K1 table, with the kernel that served the shape."""
+    n = grid.shape[0]
+    out = fused_sample.grid_sample_3d_fused(vol, grid, padding)
+    ref = fused_sample.grid_sample_3d_plain(vol, grid, padding)
+    torch.cuda.synchronize()
+    run = lambda: fused_sample.grid_sample_3d_fused(vol, grid, padding)
+    ms, events = time_ms(run), event_ms(run)
+    plain = time_ms(lambda: fused_sample.grid_sample_3d_plain(vol, grid, padding), iters=3)
+    vol_n = vol.expand(n, -1, -1, -1, -1)
+    lib = time_ms(lambda: torch.nn.functional.grid_sample(
+        vol_n, grid, mode="bilinear", padding_mode=padding, align_corners=False))
+    nbytes = (vol.numel() + grid.numel() + out.numel()) * 4
+    # 8 multiply-adds per output + ~40 operations per sample.
+    b, by = bound_ms(nbytes, 16.0 * out.numel() + 40.0 * grid[..., 0].numel())
+    row = dict(shape=label, kernel=fused_sample.fwd_kernel(vol.shape),
+               max_abs_err=float((out - ref).abs().max()), rel_err=rel_err(out, ref),
+               ms=ms, event_ms=events, plain_ms=plain, bound_ms=b, bound_by=by,
+               library_ms=lib)
+    say(f"  K1-fwd {label} {padding} float32, {row['kernel']} kernel: {ms:.4f} ms "
+        f"(back to back by CUDA events {events:.4f} ms), bound {b:.4f} ms ({by}), "
+        f"plain {plain:.3f} ms, F.grid_sample {lib:.4f} ms (device time)")
+    return row
 
 
 def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
@@ -270,36 +333,59 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
             del vol_n
     del vol, gout, grid, out, ref
 
-    # K2-bwd at the refinement backward's shapes: the decoder's C=196 block,
-    # a camera block (3D), the decoder's last block (the largest).
-    shapes = ((N_REFINE, 196, 32, 32), (N_REFINE, 256, 16, 16, 16),
-              (N_REFINE, 64, 128, 128))
-    for shape in shapes:
-        x = torch.randn(*shape, generator=g, device=dev)
-        gy = torch.randn(*shape, generator=g, device=dev)
-        _, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
-        dx = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
-        ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
-        torch.cuda.synchronize()
-        err = rel_err(dx, ref)
-        say(f"  K2-bwd {shape} float32: rel err {err:.3g} (tol {FP32_TOL:.3g})")
-        if not err <= FP32_TOL:
-            fail(f"K2-bwd {shape} disagrees with plain")
-        if shape == shapes[-1]:
-            ms = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2))
-            plain = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(
-                x, inv, gy, 0.2), iters=3)
-            nbytes = 3 * x.numel() * 4 + inv.numel() * 4
-            b, by = bound_ms(nbytes, 8.0 * x.numel())
-            records["K2b"] = dict(
-                name="lrelu_pnorm_bwd", route="cuda",
-                source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
-                replaces="latentfusion_tpu/ops/pallas_lrelu_pnorm.py:104",
-                max_abs_err=float((dx - ref).abs().max()), ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None)
-        del x, gy, inv, dx, ref
+    # K2-bwd at every shape of the refinement step (8 hypotheses), fp32 and
+    # bf16, each run twice for the same bits; fp32 timed.
+    table = []
+    for shape, per_step in REFINE_K2_CALLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+            gy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+            _, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+            dx = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
+            again = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
+            ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
+            torch.cuda.synchronize()
+            err = rel_err(dx, ref)
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            same = bool(torch.equal(dx, again))
+            say(f"  K2-bwd {shape} {str(dtype)[6:]}: rel err {err:.3g} (tol {tol:.3g}); "
+                f"run twice, same bits: {same}")
+            if not err <= tol:
+                fail(f"K2-bwd {shape} {dtype} disagrees with plain")
+            if not same:
+                fail(f"K2-bwd {shape} {dtype} is not bit-reproducible")
+            if dtype == torch.float32:
+                run = lambda: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
+                ms, events = time_ms(run), event_ms(run)
+                plain = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(
+                    x, inv, gy, 0.2), iters=3)
+                nbytes = 3 * x.numel() * 4 + inv.numel() * 4
+                b, by = bound_ms(nbytes, 8.0 * x.numel())
+                table.append(dict(shape=shape, per_step=per_step, ms=ms, event_ms=events,
+                                  bound_ms=b, bound_by=by, plain_ms=plain,
+                                  max_abs_err=float((dx - ref).abs().max())))
+            del x, gy, inv, dx, again, ref
+    say("  K2-bwd at the refinement step's shapes, float32 (launches per step, "
+        "kernel device ms, bound ms by bytes, plain device ms, kernel ms back to "
+        "back by CUDA events):")
+    for row in table:
+        say(f"    {str(row['shape']):22s} x{row['per_step']}  {row['ms']:.4f}  "
+            f"{row['bound_ms']:.4f}  {row['plain_ms']:.4f}  {row['event_ms']:.4f}")
+    per_step = {k: sum(r["per_step"] * r[k] for r in table)
+                for k in ("ms", "bound_ms", "plain_ms", "event_ms")}
+    say(f"  K2-bwd per refinement step ({sum(r['per_step'] for r in table)} calls), "
+        f"launch-weighted: {per_step['ms']:.4f} ms of device time, bound "
+        f"{per_step['bound_ms']:.4f} ms, plain {per_step['plain_ms']:.4f} ms; back to "
+        f"back by CUDA events {per_step['event_ms']:.4f} ms")
+    last = table[-1]
+    records["K2b"] = dict(
+        name="lrelu_pnorm_bwd", route="cuda",
+        source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
+        replaces="latentfusion_tpu/ops/pallas_lrelu_pnorm.py:104",
+        max_abs_err=last["max_abs_err"], ms=last["ms"], plain_ms=last["plain_ms"],
+        bound_ms=last["bound_ms"], bound_by=last["bound_by"], library_ms=None)
     torch.cuda.empty_cache()
-    return records
+    return records, dict(rows=table, per_step=per_step)
 
 
 def train_config():
@@ -397,19 +483,16 @@ def phase_k3_shape(fused_sample, seed):
     """K1's three kernels at a shape of K3 (ops/pallas_volume.py: an
     unshared volume over 17^3): vol (4, 64, 32^3), grid (4, 32^3), fp32,
     against their plain versions, timed beside F.grid_sample and aten's
-    backward."""
+    backward. Then the forward's gather kernel, which serves volumes whose
+    channel does not fit in shared memory, at vol (1, 8, 48^3)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     vol = torch.randn(4, 64, 32, 32, 32, generator=g, device=dev)
     grid = torch.rand(4, 32, 32, 32, 3, generator=g, device=dev) * 2.4 - 1.2
     gout = torch.randn(4, 64, 32, 32, 32, generator=g, device=dev)
     pad = "border"
+    out = {"K1-fwd": time_k1(fused_sample, vol, grid, pad, "K3's shape vol (4, 64, 32^3), grid (4, 32^3)")}
     runs = {
-        "K1-fwd": (lambda: fused_sample.grid_sample_3d_fused(vol, grid, pad),
-                   lambda: fused_sample.grid_sample_3d_plain(vol, grid, pad),
-                   lambda: torch.nn.functional.grid_sample(
-                       vol, grid, mode="bilinear", padding_mode=pad, align_corners=False),
-                   (vol.numel() + grid.numel() + gout.numel()) * 4),
         "K1-bwd-grid": (lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, pad),
                         lambda: fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, pad),
                         lambda: torch.ops.aten.grid_sampler_3d_backward(
@@ -422,7 +505,6 @@ def phase_k3_shape(fused_sample, seed):
                            gout, vol, grid, 0, 1, False, [True, False]),
                        (vol.numel() + grid.numel() + gout.numel()) * 4),
     }
-    out = {}
     for name, (kernel, plain, lib, nbytes) in runs.items():
         err = rel_err(kernel(), plain())
         torch.cuda.synchronize()
@@ -431,9 +513,31 @@ def phase_k3_shape(fused_sample, seed):
                          library_ms=time_ms(lib), bound_ms=b, bound_by=by, rel_err=err)
         say(f"  {name} at K3's shape vol (4, 64, 32^3), grid (4, 32^3), {pad}, float32: "
             f"rel err {err:.3g} (tol {FP32_TOL:.3g}), {json.dumps(out[name])}")
-        if not err <= FP32_TOL:
+    for name, row in out.items():
+        if not row["rel_err"] <= FP32_TOL:
             fail(f"{name} at K3's shape disagrees with plain")
     del vol, grid, gout
+
+    vol32 = torch.randn(1, 8, 48, 48, 48, generator=g, device=dev)
+    grid = torch.rand(2, 32, 32, 32, 3, generator=g, device=dev) * 2.4 - 1.2
+    for padding in ("border", "zeros"):
+        for dtype in (torch.float32, torch.bfloat16):
+            vol = vol32.to(dtype)
+            before = fused_sample.GATHER_LAUNCHES
+            res = fused_sample.grid_sample_3d_fused(vol, grid, padding, dtype)
+            ref = fused_sample.grid_sample_3d_plain(vol, grid, padding, dtype)
+            torch.cuda.synchronize()
+            err = rel_err(res, ref)
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            say(f"  K1-fwd vol (1, 8, 48^3), grid (2, 32^3) {padding} {str(dtype)[6:]}, "
+                f"{fused_sample.fwd_kernel(vol.shape)} kernel: rel err {err:.3g} (tol {tol:.3g})")
+            if fused_sample.GATHER_LAUNCHES != before + 1:
+                fail("K1-fwd at 48^3 did not go through the gather kernel")
+            if not err <= tol:
+                fail(f"K1-fwd gather {padding} {dtype} disagrees with plain")
+    out["K1-fwd gather"] = time_k1(fused_sample, vol32, grid, "border",
+                                   "vol (1, 8, 48^3), grid (2, 32^3)")
+    del vol32, vol, grid, res, ref
     torch.cuda.empty_cache()
     return out
 
@@ -507,7 +611,7 @@ def drive_slice(label, model, objects, kernels, seed, profile):
         model.build_latent_object(obs)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        render_ms = time_ms(lambda: model.render_latent_object(
+        render_ms = event_ms(lambda: model.render_latent_object(
             z, cams, return_latent=False), iters=3, warmup=1)
         if profile and name == objects[0][0]:
             profile_render(model, z, cams)
@@ -558,19 +662,160 @@ def views(obs, start: int, stop: int):
                        obs.mask[start:stop], obs.camera[start:stop])
 
 
-def profile_step(fn) -> None:
-    """Print the device time of one call of ``fn`` by kernel (torch.profiler)."""
+def profile_step(fn):
+    """Print the device time of one call of ``fn`` by kernel (torch.profiler);
+    returns the profiler's averages by name."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    say(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    averages = prof.key_averages()
+    say(averages.table(sort_by="self_device_time_total", row_limit=15))
+    return averages
 
 
-def phase_pose_flagship(model, kernels, seed):
+def kernel_device_ms(averages, name_part: str):
+    """Device ms and calls of the kernels whose name holds ``name_part``."""
+    rows = [e for e in averages if name_part in e.key]
+    return sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+
+
+def record_step(step_fn):
+    """One call of ``step_fn`` with K2-bwd's input shapes counted and the
+    inputs of the linear resizes (decoder blocks, U-Net heads, the
+    Photographer's last resize) kept."""
+    from latentfusion_tpu_torch.modules import blocks, unet
+    from latentfusion_tpu_torch.ops import interpolate as resize_mod, lrelu_pnorm
+    from latentfusion_tpu_torch.recon import models
+
+    k2_shapes, resizes = {}, []
+    bwd, resize = lrelu_pnorm.lrelu_pixel_norm_bwd, resize_mod.interpolate
+
+    def spy_bwd(x, inv, g, slope):
+        k2_shapes[tuple(x.shape)] = k2_shapes.get(tuple(x.shape), 0) + 1
+        return bwd(x, inv, g, slope)
+
+    def spy_resize(x, scale_factor=None, size=None, mode="nearest"):
+        if mode != "nearest":
+            resizes.append((x.detach().clone(), scale_factor, mode))
+        return resize(x, scale_factor=scale_factor, size=size, mode=mode)
+
+    with mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd", spy_bwd), \
+            mock.patch.object(blocks, "interpolate", spy_resize), \
+            mock.patch.object(unet, "interpolate", spy_resize), \
+            mock.patch.object(models, "interpolate", spy_resize):
+        step_fn()
+    torch.cuda.synchronize()
+    return k2_shapes, resizes
+
+
+def resize_backward_repeats(resizes, seed) -> bool:
+    """The backward of each recorded linear resize, run twice on one
+    upstream gradient: True if every pair has the same bits. Also prints
+    the same check for F.interpolate, whose backward adds with atomics."""
+    from latentfusion_tpu_torch.ops.interpolate import interpolate
+
+    g = torch.Generator(device=resizes[0][0].device).manual_seed(seed)
+    linear = {3: "linear", 4: "bilinear", 5: "trilinear"}
+    same, same_lib = True, True
+    for x, scale, mode in resizes:
+        gy = None
+
+        def grad(fn):
+            nonlocal gy
+            xx = x.clone().requires_grad_()
+            y = fn(xx)
+            if gy is None:
+                gy = torch.randn(y.shape, generator=g, device=y.device)
+            return torch.autograd.grad(y, xx, gy)[0]
+
+        def lib(xx):
+            size = [int(np.floor(d * scale)) for d in xx.shape[2:]]
+            return torch.nn.functional.interpolate(xx, size=size, mode=linear[xx.dim()],
+                                                   align_corners=False)
+
+        port = lambda xx: interpolate(xx, scale_factor=scale, mode=mode)
+        pair = [grad(port) for _ in range(2)]
+        lib_pair = [grad(lib) for _ in range(2)]
+        torch.cuda.synchronize()
+        same &= bool(torch.equal(*pair))
+        same_lib &= bool(torch.equal(*lib_pair))
+        say(f"    resize {tuple(x.shape)} x{scale} {mode}: backward run twice, same bits "
+            f"{bool(torch.equal(*pair))} (F.interpolate: {bool(torch.equal(*lib_pair))}); "
+            f"port vs F.interpolate rel err {rel_err(pair[0], lib_pair[0]):.3g}")
+    say(f"  the decoder's resizes, backward twice: same bits {same} "
+        f"(F.interpolate: {same_lib})")
+    return same
+
+
+def step_repeats(step_fn) -> bool:
+    """Whether two calls of ``step_fn() -> (loss, {name: gradient})`` give
+    the same bits."""
+    (l1, g1), (l2, g2) = step_fn(), step_fn()
+    return bool(torch.equal(l1, l2)) and all(torch.equal(g1[k], g2[k]) for k in g1)
+
+
+def parting_modules(step_fn, network) -> list:
+    """The leaf modules of ``network`` whose backward gave other bits in two
+    calls of ``step_fn`` from the same incoming gradient: (name, class,
+    input shapes), in the order the backward reached them."""
+    records = {}
+
+    def hook(name):
+        def record(module, grad_input, grad_output):
+            records.setdefault(name, []).append(
+                ([None if t is None else t.clone() for t in grad_input],
+                 [None if t is None else t.clone() for t in grad_output]))
+        return record
+
+    leaves = [(n, m) for n, m in network.named_modules() if not list(m.children())]
+    handles = [m.register_full_backward_hook(hook(n)) for n, m in leaves]
+    try:
+        runs = []
+        for _ in range(2):
+            records = {}
+            step_fn()
+            torch.cuda.synchronize()
+            runs.append(records)
+    finally:
+        for h in handles:
+            h.remove()
+
+    def same(a, b):
+        return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+    modules = dict(leaves)
+    parting = []
+    for name, calls in runs[0].items():
+        for (gin1, gout1), (gin2, gout2) in zip(calls, runs[1][name]):
+            if same(gout1, gout2) and not same(gin1, gin2):
+                parting.append((name, type(modules[name]).__name__,
+                                [None if t is None else list(t.shape) for t in gin1]))
+    return parting
+
+
+def nondeterministic_ops(step_fn) -> list:
+    """The ops that torch's deterministic-algorithms check flags in one call
+    of ``step_fn`` (warn_only: a diagnostic, switched off again after)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step_fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:160] for w in caught})
+
+
+def phase_pose_flagship(model, kernels, seed, k2b_table):
     """CEM then refinement for view 15 of refs_o0 from the latent of views
-    0-14; returns the launch counts of the pose path by kernel."""
+    0-14; then the refinement again from the same coarse cameras, which must
+    end on the same bits. Returns the launch counts of the pose path by
+    kernel."""
     from latentfusion_tpu_torch.pose import estimation, metrics
 
     obs = load_views(FRAMES / "refs_o0.npz", model.device)
@@ -610,7 +855,7 @@ def phase_pose_flagship(model, kernels, seed):
     if not (bool(torch.isfinite(history).all()) and len(best) == fine.ranking_size
             and bool(torch.isfinite(best.translation).all())):
         fail("pose: the refinement's losses or poses are not finite")
-    _, _, stats2, cem_s, _, _, refine_ms, whole_s = estimate()
+    cams2, _, stats2, cem_s, _, _, refine_ms, whole_s = estimate()
     steps2 = stats2["num_steps"]
     m_coarse = metrics.camera_metrics(target.camera, cams[0], None, 1.0)
     m_refined = metrics.camera_metrics(target.camera, best[0], None, 1.0)
@@ -626,12 +871,53 @@ def phase_pose_flagship(model, kernels, seed):
         f"refinement {json.dumps(refine_counts)} (per step "
         f"{json.dumps({k: v / steps for k, v in refine_counts.items()})})")
 
+    # Run to run: the refinement again from the first run's coarse cameras.
+    again, stats3 = fine.estimate(z, target, camera=cams[:fine.num_samples])
+    torch.cuda.synchronize()
+    same_cem = all(torch.equal(a, b) for a, b in ((cams.extrinsic, cams2.extrinsic),
+                                                  (cams.viewport, cams2.viewport)))
+    same_pose = (torch.equal(best.extrinsic, again.extrinsic)
+                 and torch.equal(best.viewport, again.viewport))
+    same_loss = torch.equal(stats["loss_history"][:steps],
+                            stats3["loss_history"][:stats3["num_steps"]])
+    say(f"  run to run: CEM cameras of the two estimates the same bits {same_cem}; "
+        f"refinement twice from the same coarse cameras: final poses the same bits "
+        f"{same_pose}, loss histories the same bits {same_loss} ({steps} and "
+        f"{stats3['num_steps']} steps)")
+
     zcams = cams[:N_REFINE].zoom(None, model.input_size, model.camera_dist)
-    gradient_check("flagship refinement step",
-                   lambda: fine.loss_and_grads(z, target, zcams),
-                   fine.model.photographer, kernels)
+    step = lambda: fine.loss_and_grads(z, target, zcams)
+    flagged = nondeterministic_ops(step)
+    say(f"  ops flagged by torch.use_deterministic_algorithms(True, warn_only=True) "
+        f"in one refinement step: {json.dumps(flagged)}")
+    if not same_pose:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            repeats_det = step_repeats(step)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        say(f"  one refinement step twice: loss and camera gradient the same bits "
+            f"{step_repeats(step)}; with torch.use_deterministic_algorithms(True) "
+            f"{repeats_det}")
+        say(f"  modules whose backward parts the bits from the same incoming "
+            f"gradient: {json.dumps(parting_modules(step, fine.model.photographer))}")
+    k2_shapes, resizes = record_step(step)
+    expected = {shape: n for shape, n in REFINE_K2_CALLS}
+    say(f"  K2-bwd calls in one refinement step by shape: "
+        f"{json.dumps({str(k): v for k, v in k2_shapes.items()})}")
+    if k2_shapes != expected:
+        fail(f"pose: K2-bwd's calls in a refinement step are not phase 2's table: {k2_shapes}")
+    if not resize_backward_repeats(resizes, seed):
+        fail("pose: a decoder resize's backward changed bits run to run")
+    del resizes
+
+    gradient_check("flagship refinement step", step, fine.model.photographer, kernels)
     say("  one refinement step (8 hypotheses, forward and backward), device time by kernel:")
-    profile_step(lambda: fine.loss_and_grads(z, target, zcams))
+    averages = profile_step(step)
+    k2b_ms, k2b_calls = kernel_device_ms(averages, "lrelu_pnorm_bwd_kernel")
+    say(f"  K2-bwd in the step's profile: {k2b_ms:.4f} ms in {k2b_calls} calls; "
+        f"phase 2's launch-weighted sum {k2b_table['per_step']['ms']:.4f} ms (bound "
+        f"{k2b_table['per_step']['bound_ms']:.4f} ms)")
     torch.cuda.empty_cache()
     return counts
 
@@ -861,11 +1147,14 @@ def main() -> None:
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
 
     say("== phase 2/7: kernels against their plain versions")
-    records = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
-    records.update(phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed))
+    records, k1_table = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
+    bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
+    records.update(bwd_records)
     records.update(phase_train_kernels(fused_sample, args.seed))
     k3 = phase_k3_shape(fused_sample, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
+    say(f"   K1-fwd by shape (kernel that served it): "
+        f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
     say(f"   K1 at K3's shape: {json.dumps(k3)}")
 
     say(f"== phase 3/7: flagship build from 16 views + render of {N_HYPOTHESES}")
@@ -891,7 +1180,7 @@ def main() -> None:
 
     say("== phase 5/7: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick)")
-    pose_counts = phase_pose_flagship(flagship, kernels, args.seed)
+    pose_counts = phase_pose_flagship(flagship, kernels, args.seed, k2b_table)
     say(f"   pose path launches: {json.dumps(pose_counts)}")
     del flagship
     torch.cuda.empty_cache()

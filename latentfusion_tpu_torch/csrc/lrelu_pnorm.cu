@@ -32,10 +32,25 @@
 //   x, g (B, C, S) fp32 or bf16, contiguous; inv (B, S) fp32 from the
 //   forward; dx like x.
 //
-// What bounds it: bytes, two reads (x, g) and one write (dx). The design is
-// the forward's: one thread per (b, s) site walks C twice, first to sum
-// g * u in fp32, then to write dx; the second pass re-reads x and g, mostly
-// from L2.
+// What bounds it: bytes, two reads (x, g) and one write (dx). A refinement
+// step (8 hypotheses) makes 19 calls at 8 shapes, from (8, 64, 128^2) down to
+// (8, 512, 4^2): 50 M elements, 0.18 ms at 3.35 TB/s.
+//
+// Design. One thread per site walking C would give the small calls a block
+// or two (8 x 512 x 4^2 is 128 sites) and a 512-step dependent loop. Here a
+// block of 256 threads owns a tile of TS sites of one b and all C channels.
+// Lane l of warp w takes site l % TS and channels w * (32 / TS) + l / TS,
+// stepping by 256 / TS, so the lanes of a warp read 32 / TS channel rows of
+// TS consecutive sites: for TS = S (S below 32) that is one contiguous run
+// of (c, s) elements. Each thread keeps up to kCache of its x and g values in
+// registers and sums g * u over its channels in fp32; a shuffle over the
+// lanes of one site, then a fixed-order sum over the 8 warps in shared
+// memory, gives t. The same threads then write dx from the registers, so x
+// and g are read from memory once. TS (a power of two, at most 32) is the
+// largest that keeps a thread's channels within kCache and the call at 264
+// blocks or more (two per SM), down to 8 sites (a 32-byte sector of fp32).
+// No atomics, and each sum is taken in a fixed order: two runs give the same
+// bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,24 +92,64 @@ lrelu_pnorm_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kCache = 16;     // channels a thread keeps in registers
+constexpr int kMinBlocks = 264;
+
 template <typename T, typename G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
                        const G* __restrict__ g, T* __restrict__ dx, int64_t c,
-                       int64_t s, int64_t sites, float slope) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= sites) return;
-  const int64_t b = i / s;
-  const int64_t base = b * c * s + (i - b * s);
+                       int64_t s, int ts, int64_t tiles, float slope) {
+  __shared__ float part[kBwdWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane & (ts - 1);
+  const int rows = 32 / ts;  // channel rows per warp
+  const int64_t b = blockIdx.x / tiles;
+  const int64_t site = (blockIdx.x - b * tiles) * ts + sub;
+  const bool valid = site < s;
+  const int64_t step = (int64_t)kBwdWarps * rows;
+  const int64_t first = (int64_t)warp * rows + lane / ts;
+  const int64_t base = b * c * s + site;
+
+  float xs[kCache], gs[kCache];
   float gu = 0.f;
-  for (int64_t ci = 0; ci < c; ++ci) {
-    float u = load_f(x + base + ci * s);
-    u = u >= 0.f ? u : slope * u;
-    gu = fmaf(load_f(g + base + ci * s), u, gu);
+#pragma unroll
+  for (int i = 0; i < kCache; ++i) {
+    const int64_t ci = first + i * step;
+    if (valid && ci < c) {
+      xs[i] = load_f(x + base + ci * s);
+      gs[i] = load_f(g + base + ci * s);
+      const float u = xs[i] >= 0.f ? xs[i] : slope * xs[i];
+      gu = fmaf(gs[i], u, gu);
+    }
   }
-  const float r = inv[i];
-  const float r3t = r * r * r * (gu / (float)c);
-  for (int64_t ci = 0; ci < c; ++ci) {
+  for (int64_t ci = first + kCache * step; valid && ci < c; ci += step) {
+    const float xv = load_f(x + base + ci * s);
+    gu = fmaf(load_f(g + base + ci * s), xv >= 0.f ? xv : slope * xv, gu);
+  }
+  for (int off = ts; off < 32; off <<= 1)
+    gu += __shfl_xor_sync(0xffffffffu, gu, off);
+  if (lane < ts) part[warp][sub] = gu;
+  __syncthreads();
+  if (!valid) return;
+  float t = 0.f;
+#pragma unroll
+  for (int wi = 0; wi < kBwdWarps; ++wi) t += part[wi][sub];
+  const float r = inv[b * s + site];
+  const float r3t = r * r * r * (t / (float)c);
+
+#pragma unroll
+  for (int i = 0; i < kCache; ++i) {
+    const int64_t ci = first + i * step;
+    if (ci < c) {
+      const float u = xs[i] >= 0.f ? xs[i] : slope * xs[i];
+      const float du = gs[i] * r - u * r3t;
+      store_f(dx + base + ci * s, xs[i] >= 0.f ? du : slope * du);
+    }
+  }
+  for (int64_t ci = first + kCache * step; ci < c; ci += step) {
     const float xv = load_f(x + base + ci * s);
     const float u = xv >= 0.f ? xv : slope * xv;
     const float du = load_f(g + base + ci * s) * r - u * r3t;
@@ -102,14 +157,26 @@ lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
   }
 }
 
+// Sites per tile for the backward; see the note at the top.
+int bwd_tile_sites(int64_t b, int64_t c, int64_t s) {
+  int ts = 1;
+  while (ts < 32 && ts < s) ts <<= 1;
+  auto blocks = [&](int t) { return b * ((s + t - 1) / t); };
+  while (ts > 8 && (c * ts > (int64_t)kCache * kBwdThreads ||
+                    blocks(ts) < kMinBlocks))
+    ts >>= 1;
+  return ts;
+}
+
 template <typename T, typename G>
 void launch_bwd(const void* x, const void* inv, const void* g, void* dx,
-                int64_t c, int64_t s, int64_t sites, float slope,
+                int64_t b, int64_t c, int64_t s, float slope,
                 cudaStream_t st) {
-  const unsigned blocks = (unsigned)((sites + kThreads - 1) / kThreads);
-  lrelu_pnorm_bwd_kernel<T, G><<<blocks, kThreads, 0, st>>>(
+  const int ts = bwd_tile_sites(b, c, s);
+  const int64_t tiles = (s + ts - 1) / ts;
+  lrelu_pnorm_bwd_kernel<T, G><<<(unsigned)(b * tiles), kBwdThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(inv),
-      static_cast<const G*>(g), static_cast<T*>(dx), c, s, sites, slope);
+      static_cast<const G*>(g), static_cast<T*>(dx), c, s, ts, tiles, slope);
 }
 
 }  // namespace
@@ -146,13 +213,13 @@ int lf_lrelu_pnorm_bwd(const void* x, const void* inv, const void* g, void* dx,
   if (sites == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && g_dtype == 0)
-    launch_bwd<float, float>(x, inv, g, dx, c, s, sites, slope, st);
+    launch_bwd<float, float>(x, inv, g, dx, b, c, s, slope, st);
   else if (x_dtype == 0 && g_dtype == 1)
-    launch_bwd<float, __nv_bfloat16>(x, inv, g, dx, c, s, sites, slope, st);
+    launch_bwd<float, __nv_bfloat16>(x, inv, g, dx, b, c, s, slope, st);
   else if (x_dtype == 1 && g_dtype == 0)
-    launch_bwd<__nv_bfloat16, float>(x, inv, g, dx, c, s, sites, slope, st);
+    launch_bwd<__nv_bfloat16, float>(x, inv, g, dx, b, c, s, slope, st);
   else if (x_dtype == 1 && g_dtype == 1)
-    launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, inv, g, dx, c, s, sites, slope,
+    launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, inv, g, dx, b, c, s, slope,
                                              st);
   else
     return (int)cudaErrorInvalidValue;

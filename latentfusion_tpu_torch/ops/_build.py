@@ -68,9 +68,17 @@ class _Build:
 
 
 def build_all(names=SOURCES) -> None:
-    """Build every missing library, one nvcc per source, all started together."""
-    for build in [_Build(name) for name in names]:
-        build.wait()
+    """Build every missing library, one nvcc per source, all started together.
+    If one build fails, the others are stopped before the error is raised."""
+    builds = [_Build(name) for name in names]
+    try:
+        for build in builds:
+            build.wait()
+    finally:
+        for build in builds:
+            if build.proc is not None and build.proc.poll() is None:
+                build.proc.kill()
+                build.proc.wait()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,8 +17,12 @@ and whose backward is K1-bwd-grid and K1-bwd-vol.
 On a CUDA tensor each wrapper launches its kernel of ``csrc/fused_sample.cu``
 (see the note there) or raises; on a CPU tensor it runs its plain PyTorch
 version, the same function written out as an explicit 8-corner gather (or
-scatter). ``LAUNCHES``, ``BWD_GRID_LAUNCHES`` and ``BWD_VOL_LAUNCHES``
-count kernel launches.
+scatter). The forward has two kernels, chosen by the volume's size alone
+(``fwd_kernel``): the staged kernel, which copies chunks of channels into
+shared memory, wherever one channel fits there (every zoo family's latent),
+and the gather kernel, which reads the corners from L2, for larger volumes.
+``LAUNCHES`` (staged), ``GATHER_LAUNCHES``, ``BWD_GRID_LAUNCHES`` and
+``BWD_VOL_LAUNCHES`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -30,11 +34,22 @@ from . import _build
 from .grid_sample import _unnormalize
 
 LAUNCHES = 0
+GATHER_LAUNCHES = 0
 BWD_GRID_LAUNCHES = 0
 BWD_VOL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PADDING = ("zeros", "border")
+# The staged kernel keeps at least 4 bytes of every voxel, the voxels
+# rounded up to 32, in the 227 KB of shared memory a block may use.
+_STAGED_MAX_VOXELS = 232448 // 4
+
+
+def fwd_kernel(volume_shape) -> str:
+    """The forward kernel that serves a volume of ``volume_shape`` (NV, C,
+    D, H, W): "staged" or "gather"."""
+    voxels = -(-int(volume_shape[2] * volume_shape[3] * volume_shape[4]) // 32) * 32
+    return "staged" if voxels <= _STAGED_MAX_VOXELS else "gather"
 
 
 def _check_shapes(volume_shape, grid, padding_mode):
@@ -124,7 +139,7 @@ def grid_sample_3d_fused(volume: torch.Tensor, grid: torch.Tensor,
                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Sample ``volume`` (NV, C, D, H, W) at ``grid`` (N, Do, Ho, Wo, 3),
     NV | N. Returns (N, C, Do, Ho, Wo) in ``out_dtype``."""
-    global LAUNCHES
+    global LAUNCHES, GATHER_LAUNCHES
     if volume.device.type == "cpu":
         return grid_sample_3d_plain(volume, grid, padding_mode, out_dtype)
     if volume.device.type != "cuda":
@@ -140,8 +155,9 @@ def grid_sample_3d_fused(volume: torch.Tensor, grid: torch.Tensor,
     k = grid[0, ..., 0].numel()
     out = torch.empty((n, c, *grid.shape[1:4]), dtype=out_dtype,
                       device=volume.device)
+    kernel = fwd_kernel(volume.shape)
     lib = _build.load("fused_sample")
-    fn = lib.lf_fused_sample_fwd
+    fn = getattr(lib, f"lf_fused_sample_fwd_{kernel}")
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 7
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -151,8 +167,11 @@ def grid_sample_3d_fused(volume: torch.Tensor, grid: torch.Tensor,
                     nv, n, c, d, h, w, k, int(padding_mode == "border"),
                     _DTYPE_CODES[volume.dtype], _DTYPE_CODES[out_dtype],
                     stream)
-    _build.check(lib, status, "fused_sample_fwd")
-    LAUNCHES += 1
+    _build.check(lib, status, f"fused_sample_fwd_{kernel}")
+    if kernel == "staged":
+        LAUNCHES += 1
+    else:
+        GATHER_LAUNCHES += 1
     return out
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 forward, d/dgrid and d/dvolume, K2 forward
-and backward) against their plain PyTorch versions on the card.
+and backward) against their plain PyTorch versions on the card, and the
+resize's backward run to run.
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false and
 run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
 
@@ -15,6 +16,7 @@ from latentfusion_tpu_torch import transforms, modules, zoo
 from latentfusion_tpu_torch.camera import Camera
 from latentfusion_tpu_torch.observation import Observation
 from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
+from latentfusion_tpu_torch.ops.interpolate import interpolate
 from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
 FP32_TOL = 1e-5
@@ -38,18 +40,28 @@ def _err(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nv,n,k", [(1, 8, (16, 16, 16)), (3, 6, (5, 7, 9)),
-                                    (4, 4, (8, 8, 8))])
-def test_k1_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, k):
+@pytest.mark.parametrize("nv,n,c,dhw,k", [
+    (1, 8, 40, (16, 16, 16), (16, 16, 16)), (3, 6, 40, (16, 16, 16), (5, 7, 9)),
+    (4, 4, 40, (16, 16, 16), (8, 8, 8)),
+    (1, 8, 256, (16, 16, 16), (16, 16, 16)),    # flagship refinement decode
+    (1, 128, 256, (16, 16, 16), (16, 16, 16)),  # flagship CEM render
+    (2, 6, 20, (5, 7, 9), (6, 5, 4)),           # a non-cubic volume
+    (4, 4, 64, (32, 32, 32), (32, 32, 32)),     # K3's shape
+    (1, 2, 3, (40, 40, 40), (8, 8, 8)),         # a channel over 227 KB: gather
+], ids=["shared", "groups", "unshared", "refine", "render", "noncubic", "k3", "gather"])
+def test_k1_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, dhw, k):
     g = torch.Generator(device=cuda).manual_seed(0)
-    vol = torch.randn(nv, 40, 16, 16, 16, generator=g, device=cuda).to(dtype)
+    vol = torch.randn(nv, c, *dhw, generator=g, device=cuda).to(dtype)
     grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
-    before = fused_sample.LAUNCHES
+    counter = {"staged": "LAUNCHES", "gather": "GATHER_LAUNCHES"}[
+        fused_sample.fwd_kernel(vol.shape)]
+    assert (counter == "GATHER_LAUNCHES") == (dhw == (40, 40, 40))
+    before = getattr(fused_sample, counter)
     out = fused_sample.grid_sample_3d_fused(vol, grid, padding_mode, dtype)
     torch.cuda.synchronize()
-    assert fused_sample.LAUNCHES == before + 1
+    assert getattr(fused_sample, counter) == before + 1
     ref = fused_sample.grid_sample_3d_plain(vol, grid, padding_mode, dtype)
-    assert out.shape == ref.shape == (n, 40, *k) and out.dtype == dtype
+    assert out.shape == ref.shape == (n, c, *k) and out.dtype == dtype
     assert _err(out, ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
 
 
@@ -109,10 +121,18 @@ def test_k1_bwd_vol_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, k)
     assert _err(dvol, ref) <= FP32_TOL
 
 
+# The 8 shapes of a flagship refinement step's 19 calls (8 hypotheses).
+REFINE_K2_SHAPES = [(8, 256, 16, 16, 16), (8, 256, 16, 16), (8, 512, 16, 16),
+                    (8, 512, 8, 8), (8, 512, 4, 4), (8, 196, 32, 32),
+                    (8, 128, 64, 64), (8, 64, 128, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33)])
+@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33),
+                                   (2, 7, 5), *REFINE_K2_SHAPES])
 def test_k2_bwd_kernel_matches_plain(cuda, dtype, shape):
+    """Against the plain version, and the same bits when run again."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
     gy = torch.randn(*shape, generator=g, device=cuda).to(dtype)
@@ -124,6 +144,29 @@ def test_k2_bwd_kernel_matches_plain(cuda, dtype, shape):
     ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
     assert dx.dtype == dtype
     assert _err(dx, ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
+    assert torch.equal(lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2), dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mode", [((8, 512, 4, 4), "bilinear"),
+                                        ((8, 196, 32, 32), "bilinear"),
+                                        ((2, 8, 4, 6, 8), "trilinear")])
+def test_resize_backward_repeats_bits(cuda, shape, mode):
+    """The resize's backward (matrix products, no atomics) gives the same
+    bits run to run and agrees with F.interpolate's."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(*shape, generator=g, device=cuda)
+    gy = torch.randn(*shape[:2], *(2 * d for d in shape[2:]), generator=g, device=cuda)
+
+    def grad(fn):
+        xx = x.clone().requires_grad_()
+        return torch.autograd.grad(fn(xx), xx, gy)[0]
+
+    dx = grad(lambda a: interpolate(a, scale_factor=2.0, mode=mode))
+    assert torch.equal(dx, grad(lambda a: interpolate(a, scale_factor=2.0, mode=mode)))
+    ref = grad(lambda a: torch.nn.functional.interpolate(
+        a, scale_factor=2.0, mode=mode, align_corners=False))
+    assert _err(dx, ref) <= FP32_TOL
 
 
 @pytest.mark.cuda

@@ -293,11 +293,22 @@ def test_grid_sample_2d_matches(rng, mode, padding_mode):
     ((2, 3, 8, 8), 2.0, "nearest"), ((2, 3, 8, 8), 0.5, "nearest"),
     ((2, 3, 8, 8), 2.0, "bilinear"), ((2, 3, 8, 8), 0.5, "bilinear"),
     ((1, 2, 4, 6, 8), 2.0, "trilinear"), ((1, 2, 4, 6, 8), 0.5, "nearest"),
+    # The flagship decoder's 2x upsamples: 4^2 -> 8^2 at 512 channels, and
+    # the 196-channel block at 32^2.
+    ((2, 512, 4, 4), 2.0, "bilinear"), ((2, 196, 32, 32), 2.0, "bilinear"),
+    ((1, 3, 7, 10), 1.5, "bilinear"), ((1, 2, 3, 5, 4), 1.5, "trilinear"),
 ])
 def test_interpolate_matches(rng, shape, scale, mode):
+    """Forward, and backward (autograd against ``jax.vjp``, relative to the
+    largest gradient)."""
     x = rng.randn(*shape).astype(np.float32)
-    close(t_interpolate(torch.from_numpy(x), scale_factor=scale, mode=mode),
-          j_interpolate(x, scale_factor=scale, mode=mode), OPS_TOL)
+    x_t = torch.from_numpy(x).requires_grad_()
+    y_t = t_interpolate(x_t, scale_factor=scale, mode=mode)
+    y_j, vjp = jax.vjp(lambda a: j_interpolate(a, scale_factor=scale, mode=mode), x)
+    close(y_t.detach(), y_j, OPS_TOL)
+    g = rng.randn(*y_j.shape).astype(np.float32)
+    dx_t, = torch.autograd.grad(y_t, x_t, torch.from_numpy(g))
+    close_rel(dx_t, vjp(g)[0], OPS_TOL)
 
 
 # ------------------------------------------------------------ observation
