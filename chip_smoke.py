@@ -14,12 +14,16 @@ line after it ends:
    step (K1-bwd-vol on the flagship recipe's decode and encode grids), with
    kernel, plain and library times (device time by torch.profiler, warm-up
    excluded; the redesigned kernels also by CUDA events back to back): K1-fwd
-   at the render (128 hypotheses) and refinement (8) shapes, K2-bwd at all
-   8 shapes of a refinement step, each run twice for the same bits, as a
-   table with its launch-weighted sum per step. Then K1 at a shape of the
-   tiled sampler K3 (volumes over 17^3), which K1 serves, and K1-fwd's
-   gather kernel (volumes whose channel does not fit in shared memory) at
-   vol (1, 8, 48^3); each K1-fwd timing names the kernel that served it.
+   at the render (128 hypotheses) and refinement (8) shapes, K1-bwd-grid at
+   the refinement shape, K2-fwd at the 8 shapes of a refinement step's 19
+   calls and of a CEM render's (batch 128), K2-bwd at those of a refinement
+   step, each run twice for the same bits, the K2 tables with their
+   launch-weighted sums. Then K1 at a shape of the tiled sampler K3
+   (volumes over 17^3), which K1 serves, and the kernels that serve volumes
+   whose channel does not fit in shared memory (K1-fwd's gather kernel,
+   K1-bwd-grid's per-sample kernel) at vol (1, 8, 48^3); each K1-fwd timing
+   names the kernel that served it, and the launch counters must show which
+   K1-bwd-grid kernel ran (staged at 16^3 and 32^3).
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -32,13 +36,16 @@ line after it ends:
    view 15 (known) by CEM (configs/cross_entropy_quick.toml), then gradient
    refinement (configs/adam_quick.toml); the launch counters must show all
    four kernels on this path. The refinement runs again from the first
-   run's coarse cameras; whether the final poses are the same bits is
-   printed, with the ops that torch's deterministic-algorithms check flags
-   in one step. One step is recorded: K2-bwd's calls must match phase 2's
-   table, and the backward of each of the decoder's linear resizes, run
-   twice, must give the same bits. One refinement step must agree with the
-   plain versions (see gradient_check). One refinement step is profiled:
-   device time by kernel, and K2-bwd's total beside phase 2's sum.
+   run's coarse cameras and must end on the same final pose and loss
+   history bits (if not, the ops that torch's deterministic-algorithms
+   check flags and the modules whose backward parts the bits are printed
+   first). One step is timed as the package runs it (cuDNN's deterministic
+   algorithms) and with cuDNN's default selection. One step is recorded:
+   K2's calls must match phase 2's table, and the backward of each of the
+   decoder's linear resizes, run twice, must give the same bits. One
+   refinement step must agree with the plain versions (see
+   gradient_check). One refinement step is profiled: device time by
+   kernel, and K2-fwd's and K2-bwd's totals beside phase 2's sums.
 6. pose accuracy, demo family with the learned weights: the latent of 16
    shaded views of the analytic ellipsoid, then CEM + refinement on 8
    seeded target poses; ADD-S within a tenth of the diameter on at least 7.
@@ -64,6 +71,7 @@ compare in fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -226,35 +234,71 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
         del vol32, vol, out, ref
     del decode_grid, encode_grid, grid
 
-    # K2 at shapes of the path: a flagship camera block (3D, 128 cameras),
-    # a decoder block with 196 channels, and the decoder's last block.
-    shapes = ((N_HYPOTHESES, 196, 32, 32), (N_HYPOTHESES, 256, 16, 16, 16),
-              (N_HYPOTHESES, 64, 128, 128))
-    for shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(*shape, generator=g, device=dev).to(dtype)
-            y, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
-            y_ref, inv_ref = lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)
-            torch.cuda.synchronize()
-            err = max(rel_err(y, y_ref), rel_err(inv, inv_ref))
-            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-            say(f"  K2 {shape} {str(dtype)[6:]}: rel err {err:.3g} (tol {tol:.3g})")
-            if not err <= tol:
-                fail(f"K2 {shape} {dtype} disagrees with plain")
-            if shape == shapes[-1] and dtype == torch.float32:
-                ms = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8))
-                plain = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8), iters=3)
-                nbytes = 2 * x.numel() * 4 + inv.numel() * 4
-                b, by = bound_ms(nbytes, 6.0 * x.numel())
-                records["K2"] = dict(
-                    name="lrelu_pnorm_fwd", route="cuda",
-                    source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
-                    replaces="latentfusion_tpu/ops/pallas_lrelu_pnorm.py:87",
-                    max_abs_err=float((y - y_ref).abs().max()), ms=ms,
-                    plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
-            del x, y, inv, y_ref, inv_ref
+    # K2-fwd at the 19 calls of a refinement step (8 hypotheses) and of a
+    # CEM render of 128, fp32 and bf16, each run twice for the same bits.
+    k2_tables = {}
+    for label, batch in (("refinement step", N_REFINE), ("CEM render of 128", N_HYPOTHESES)):
+        k2_tables[label] = k2_table(
+            "K2-fwd", label, [((batch, *shape[1:]), n) for shape, n in REFINE_K2_CALLS],
+            lambda shape, dtype: (torch.randn(*shape, generator=g, device=dev).to(dtype),),
+            lambda x: lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8),
+            lambda x: lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8),
+            lambda x: 2 * x.numel() * 4 + x[:, 0].numel() * 4, 6.0)
+    last = k2_tables["CEM render of 128"]["rows"][-1]  # (128, 64, 128^2)
+    records["K2"] = dict(
+        name="lrelu_pnorm_fwd", route="cuda",
+        source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
+        replaces="latentfusion_tpu/ops/pallas_lrelu_pnorm.py:87",
+        max_abs_err=last["max_abs_err"], ms=last["ms"], plain_ms=last["plain_ms"],
+        bound_ms=last["bound_ms"], bound_by=last["bound_by"], library_ms=None)
     torch.cuda.empty_cache()
-    return records, k1_table
+    return records, k1_table, k2_tables
+
+
+def as_tuple(result) -> tuple:
+    return result if isinstance(result, tuple) else (result,)
+
+
+def k2_table(name, label, calls, make, run, plain, nbytes, flops_per_element):
+    """K2 (``run(*make(shape, dtype))``, returning a tensor or a tuple of
+    tensors) against ``plain`` on the same inputs at each (shape, calls) of
+    ``calls``, fp32 and bf16, each run twice for the same bits; fp32 timed.
+    Prints the table and its launch-weighted sum; returns both."""
+    rows = []
+    for shape, calls_per in calls:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make(shape, dtype)
+            out, again, ref = (as_tuple(f(*args)) for f in (run, run, plain))
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(out, ref))
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            say(f"  {name} {shape} {str(dtype)[6:]}: rel err {err:.3g} (tol {tol:.3g}); "
+                f"run twice, same bits: {same}")
+            if not err <= tol:
+                fail(f"{name} {shape} {dtype} disagrees with plain")
+            if not same:
+                fail(f"{name} {shape} {dtype} is not bit-reproducible")
+            if dtype == torch.float32:
+                ms, events = time_ms(lambda: run(*args)), event_ms(lambda: run(*args))
+                plain_ms = time_ms(lambda: plain(*args), iters=3)
+                b, by = bound_ms(nbytes(args[0]), flops_per_element * args[0].numel())
+                rows.append(dict(shape=shape, per_step=calls_per, ms=ms, event_ms=events,
+                                 bound_ms=b, bound_by=by, plain_ms=plain_ms,
+                                 max_abs_err=float((out[0] - ref[0]).abs().max())))
+            del args, out, again, ref
+    say(f"  {name} at the {label}'s shapes, float32 (launches, kernel device ms, bound ms "
+        f"by bytes, plain device ms, kernel ms back to back by CUDA events):")
+    for row in rows:
+        say(f"    {str(row['shape']):24s} x{row['per_step']}  {row['ms']:.4f}  "
+            f"{row['bound_ms']:.4f}  {row['plain_ms']:.4f}  {row['event_ms']:.4f}")
+    total = {k: sum(r["per_step"] * r[k] for r in rows)
+             for k in ("ms", "bound_ms", "plain_ms", "event_ms")}
+    say(f"  {name} per {label} ({sum(r['per_step'] for r in rows)} calls), "
+        f"launch-weighted: {total['ms']:.4f} ms of device time, bound "
+        f"{total['bound_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms; back to "
+        f"back by CUDA events {total['event_ms']:.4f} ms")
+    return dict(rows=rows, per_step=total)
 
 
 def time_k1(fused_sample, vol, grid, padding, label):
@@ -304,16 +348,21 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
     vol = torch.randn(1, c, 16, 16, 16, generator=g, device=dev)
     gout = torch.randn(n, c, 16, 16, 16, generator=g, device=dev)
     for padding in ("border", "zeros"):
-        out = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+        out, again = bwd_grid_twice(fused_sample, vol, grid, gout, padding, "staged")
         ref = fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        say(f"  K1-bwd-grid NV=1 N={n} C={c} 16^3 {padding} float32: rel err "
-            f"{err:.3g} (tol {FP32_TOL:.3g})")
+        same = bool(torch.equal(out, again))
+        say(f"  K1-bwd-grid NV=1 N={n} C={c} 16^3 {padding} float32, staged kernel "
+            f"{fused_sample.bwd_grid_plan(vol.shape, n, grid[0, ..., 0].numel())}: rel err "
+            f"{err:.3g} (tol {FP32_TOL:.3g}); run twice, same bits: {same}")
         if not err <= FP32_TOL:
             fail(f"K1-bwd-grid {padding} disagrees with plain")
+        if not same:
+            fail(f"K1-bwd-grid {padding} is not bit-reproducible")
         if padding == "border":
-            ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding))
+            run = lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+            ms, events = time_ms(run), event_ms(run)
             plain = time_ms(lambda: fused_sample.grid_sample_3d_bwd_grid_plain(
                 vol, grid, gout, padding), iters=3)
             vol_n = vol.expand(n, -1, -1, -1, -1).contiguous()
@@ -324,6 +373,11 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
             # and 3 more for g; ~60 operations per sample for the taps.
             flops = 2.0 * 27 * gout.numel() + 60.0 * grid[..., 0].numel()
             b, by = bound_ms(nbytes, flops)
+            alt, alt_ms = bwd_grid_two_waves(fused_sample, vol, grid, gout, padding)
+            say(f"  K1-bwd-grid refinement shape, border float32: {ms:.4f} ms (back to back "
+                f"by CUDA events {events:.4f} ms), bound {b:.4f} ms ({by}), plain "
+                f"{plain:.3f} ms, aten grid_sampler_3d_backward (grid only) {lib:.4f} ms "
+                f"(device time); with {alt} {alt_ms:.4f} ms")
             records["K1b"] = dict(
                 name="fused_sample_bwd_grid", route="cuda",
                 source="latentfusion_tpu_torch/csrc/fused_sample.cu",
@@ -331,53 +385,20 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
                 max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain,
                 bound_ms=b, bound_by=by, library_ms=lib)
             del vol_n
-    del vol, gout, grid, out, ref
+    del vol, gout, grid, out, again, ref
 
-    # K2-bwd at every shape of the refinement step (8 hypotheses), fp32 and
-    # bf16, each run twice for the same bits; fp32 timed.
-    table = []
-    for shape, per_step in REFINE_K2_CALLS:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(*shape, generator=g, device=dev).to(dtype)
-            gy = torch.randn(*shape, generator=g, device=dev).to(dtype)
-            _, inv = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
-            dx = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
-            again = lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
-            ref = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2)
-            torch.cuda.synchronize()
-            err = rel_err(dx, ref)
-            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-            same = bool(torch.equal(dx, again))
-            say(f"  K2-bwd {shape} {str(dtype)[6:]}: rel err {err:.3g} (tol {tol:.3g}); "
-                f"run twice, same bits: {same}")
-            if not err <= tol:
-                fail(f"K2-bwd {shape} {dtype} disagrees with plain")
-            if not same:
-                fail(f"K2-bwd {shape} {dtype} is not bit-reproducible")
-            if dtype == torch.float32:
-                run = lambda: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2)
-                ms, events = time_ms(run), event_ms(run)
-                plain = time_ms(lambda: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(
-                    x, inv, gy, 0.2), iters=3)
-                nbytes = 3 * x.numel() * 4 + inv.numel() * 4
-                b, by = bound_ms(nbytes, 8.0 * x.numel())
-                table.append(dict(shape=shape, per_step=per_step, ms=ms, event_ms=events,
-                                  bound_ms=b, bound_by=by, plain_ms=plain,
-                                  max_abs_err=float((dx - ref).abs().max())))
-            del x, gy, inv, dx, again, ref
-    say("  K2-bwd at the refinement step's shapes, float32 (launches per step, "
-        "kernel device ms, bound ms by bytes, plain device ms, kernel ms back to "
-        "back by CUDA events):")
-    for row in table:
-        say(f"    {str(row['shape']):22s} x{row['per_step']}  {row['ms']:.4f}  "
-            f"{row['bound_ms']:.4f}  {row['plain_ms']:.4f}  {row['event_ms']:.4f}")
-    per_step = {k: sum(r["per_step"] * r[k] for r in table)
-                for k in ("ms", "bound_ms", "plain_ms", "event_ms")}
-    say(f"  K2-bwd per refinement step ({sum(r['per_step'] for r in table)} calls), "
-        f"launch-weighted: {per_step['ms']:.4f} ms of device time, bound "
-        f"{per_step['bound_ms']:.4f} ms, plain {per_step['plain_ms']:.4f} ms; back to "
-        f"back by CUDA events {per_step['event_ms']:.4f} ms")
-    last = table[-1]
+    # K2-bwd at every shape of the refinement step (8 hypotheses).
+    def inputs(shape, dtype):
+        x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        gy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        return x, lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)[1], gy
+
+    table = k2_table(
+        "K2-bwd", "refinement step", REFINE_K2_CALLS, inputs,
+        lambda x, inv, gy: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2),
+        lambda x, inv, gy: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2),
+        lambda x: 3 * x.numel() * 4 + x[:, 0].numel() * 4, 8.0)
+    last = table["rows"][-1]
     records["K2b"] = dict(
         name="lrelu_pnorm_bwd", route="cuda",
         source="latentfusion_tpu_torch/csrc/lrelu_pnorm.cu",
@@ -385,7 +406,37 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
         max_abs_err=last["max_abs_err"], ms=last["ms"], plain_ms=last["plain_ms"],
         bound_ms=last["bound_ms"], bound_by=last["bound_by"], library_ms=None)
     torch.cuda.empty_cache()
-    return records, dict(rows=table, per_step=per_step)
+    return records, table
+
+
+def bwd_grid_two_waves(fused_sample, vol, grid, gout, padding):
+    """K1-bwd-grid's staged kernel with twice its plan's channel groups (two
+    waves of blocks, the 264 or more that one SM each would fill twice):
+    the plan and the device ms, beside which the plan's own one wave is
+    chosen."""
+    n, c = grid.shape[0], vol.shape[1]
+    plan = fused_sample.bwd_grid_plan(vol.shape, n, grid[0, ..., 0].numel())
+    chunks = -(-c // plan.chunk)
+    group_channels = plan.chunk * -(-chunks // min(chunks, 2 * plan.groups))
+    groups = -(-c // group_channels)
+    alt = plan._replace(group_channels=group_channels, groups=groups,
+                        blocks=plan.blocks // plan.groups * groups)
+    with mock.patch.object(fused_sample, "bwd_grid_plan", lambda *_: alt):
+        ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding))
+    return alt, ms
+
+
+def bwd_grid_twice(fused_sample, vol, grid, gout, padding, kernel):
+    """K1-bwd-grid twice on one input; fails unless both calls went
+    through ``kernel`` ("staged" or "per_sample") by its launch counter."""
+    counter = {"staged": "BWD_GRID_LAUNCHES",
+               "per_sample": "BWD_GRID_PER_SAMPLE_LAUNCHES"}[kernel]
+    before = getattr(fused_sample, counter)
+    out = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+    again = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+    if getattr(fused_sample, counter) != before + 2:
+        fail(f"K1-bwd-grid at vol {tuple(vol.shape)} did not go through the {kernel} kernel")
+    return out, again
 
 
 def train_config():
@@ -483,8 +534,10 @@ def phase_k3_shape(fused_sample, seed):
     """K1's three kernels at a shape of K3 (ops/pallas_volume.py: an
     unshared volume over 17^3): vol (4, 64, 32^3), grid (4, 32^3), fp32,
     against their plain versions, timed beside F.grid_sample and aten's
-    backward. Then the forward's gather kernel, which serves volumes whose
-    channel does not fit in shared memory, at vol (1, 8, 48^3)."""
+    backward; K1-bwd-grid through its staged kernel, twice for the same
+    bits. Then the kernels that serve volumes whose channel does not fit in
+    shared memory, at vol (1, 8, 48^3): the forward's gather kernel and
+    K1-bwd-grid's per-sample kernel."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     vol = torch.randn(4, 64, 32, 32, 32, generator=g, device=dev)
@@ -516,7 +569,14 @@ def phase_k3_shape(fused_sample, seed):
     for name, row in out.items():
         if not row["rel_err"] <= FP32_TOL:
             fail(f"{name} at K3's shape disagrees with plain")
-    del vol, grid, gout
+    bwd_grid, again = bwd_grid_twice(fused_sample, vol, grid, gout, pad, "staged")
+    plan = fused_sample.bwd_grid_plan(vol.shape, grid.shape[0], grid[0, ..., 0].numel())
+    alt, alt_ms = bwd_grid_two_waves(fused_sample, vol, grid, gout, pad)
+    say(f"  K1-bwd-grid at K3's shape, staged kernel {plan}: run twice, same bits: "
+        f"{bool(torch.equal(bwd_grid, again))}; with {alt} {alt_ms:.4f} ms")
+    if not torch.equal(bwd_grid, again):
+        fail("K1-bwd-grid at K3's shape is not bit-reproducible")
+    del vol, grid, gout, bwd_grid, again
 
     vol32 = torch.randn(1, 8, 48, 48, 48, generator=g, device=dev)
     grid = torch.rand(2, 32, 32, 32, 3, generator=g, device=dev) * 2.4 - 1.2
@@ -537,7 +597,18 @@ def phase_k3_shape(fused_sample, seed):
                 fail(f"K1-fwd gather {padding} {dtype} disagrees with plain")
     out["K1-fwd gather"] = time_k1(fused_sample, vol32, grid, "border",
                                    "vol (1, 8, 48^3), grid (2, 32^3)")
-    del vol32, vol, grid, res, ref
+    gout = torch.randn(2, 8, 32, 32, 32, generator=g, device=dev)
+    for padding in ("border", "zeros"):
+        res, again = bwd_grid_twice(fused_sample, vol32, grid, gout, padding, "per_sample")
+        err = rel_err(res, fused_sample.grid_sample_3d_bwd_grid_plain(vol32, grid, gout, padding))
+        same = bool(torch.equal(res, again))
+        say(f"  K1-bwd-grid vol (1, 8, 48^3), grid (2, 32^3) {padding} float32, per-sample "
+            f"kernel: rel err {err:.3g} (tol {FP32_TOL:.3g}); run twice, same bits: {same}")
+        if not err <= FP32_TOL:
+            fail(f"K1-bwd-grid per-sample {padding} disagrees with plain")
+        if not same:
+            fail(f"K1-bwd-grid per-sample {padding} is not bit-reproducible")
+    del vol32, vol, grid, gout, res, again, ref
     torch.cuda.empty_cache()
     return out
 
@@ -682,18 +753,28 @@ def kernel_device_ms(averages, name_part: str):
 
 
 def record_step(step_fn):
-    """One call of ``step_fn`` with K2-bwd's input shapes counted and the
-    inputs of the linear resizes (decoder blocks, U-Net heads, the
-    Photographer's last resize) kept."""
+    """One call of ``step_fn`` with K2-fwd's and K2-bwd's input shapes
+    counted, {shape: (forward calls, backward calls)}, and the inputs of
+    the linear resizes (decoder blocks, U-Net heads, the Photographer's
+    last resize) kept."""
     from latentfusion_tpu_torch.modules import blocks, unet
     from latentfusion_tpu_torch.ops import interpolate as resize_mod, lrelu_pnorm
     from latentfusion_tpu_torch.recon import models
 
     k2_shapes, resizes = {}, []
-    bwd, resize = lrelu_pnorm.lrelu_pixel_norm_bwd, resize_mod.interpolate
+    fwd, bwd = lrelu_pnorm.lrelu_pixel_norm_fwd, lrelu_pnorm.lrelu_pixel_norm_bwd
+    resize = resize_mod.interpolate
+
+    def count(x, which):
+        calls = k2_shapes.get(tuple(x.shape), (0, 0))
+        k2_shapes[tuple(x.shape)] = tuple(n + (i == which) for i, n in enumerate(calls))
+
+    def spy_fwd(x, slope, eps):
+        count(x, 0)
+        return fwd(x, slope, eps)
 
     def spy_bwd(x, inv, g, slope):
-        k2_shapes[tuple(x.shape)] = k2_shapes.get(tuple(x.shape), 0) + 1
+        count(x, 1)
         return bwd(x, inv, g, slope)
 
     def spy_resize(x, scale_factor=None, size=None, mode="nearest"):
@@ -701,7 +782,8 @@ def record_step(step_fn):
             resizes.append((x.detach().clone(), scale_factor, mode))
         return resize(x, scale_factor=scale_factor, size=size, mode=mode)
 
-    with mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd", spy_bwd), \
+    with mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_fwd", spy_fwd), \
+            mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd", spy_bwd), \
             mock.patch.object(blocks, "interpolate", spy_resize), \
             mock.patch.object(unet, "interpolate", spy_resize), \
             mock.patch.object(models, "interpolate", spy_resize):
@@ -811,11 +893,13 @@ def nondeterministic_ops(step_fn) -> list:
     return sorted({str(w.message).split("\n")[0][:160] for w in caught})
 
 
-def phase_pose_flagship(model, kernels, seed, k2b_table):
+def phase_pose_flagship(model, kernels, seed, k2_tables):
     """CEM then refinement for view 15 of refs_o0 from the latent of views
     0-14; then the refinement again from the same coarse cameras, which must
-    end on the same bits. Returns the launch counts of the pose path by
-    kernel."""
+    end on the same bits, and a step's cost of the deterministic cuDNN
+    selection that makes it so. ``k2_tables`` holds phase 2's K2-fwd and
+    K2-bwd tables of a refinement step ("fwd", "bwd"). Returns the launch
+    counts of the pose path by kernel."""
     from latentfusion_tpu_torch.pose import estimation, metrics
 
     obs = load_views(FRAMES / "refs_o0.npz", model.device)
@@ -883,14 +967,14 @@ def phase_pose_flagship(model, kernels, seed, k2b_table):
     say(f"  run to run: CEM cameras of the two estimates the same bits {same_cem}; "
         f"refinement twice from the same coarse cameras: final poses the same bits "
         f"{same_pose}, loss histories the same bits {same_loss} ({steps} and "
-        f"{stats3['num_steps']} steps)")
+        f"{stats3['num_steps']} steps; the timed estimate {steps2})")
 
     zcams = cams[:N_REFINE].zoom(None, model.input_size, model.camera_dist)
     step = lambda: fine.loss_and_grads(z, target, zcams)
-    flagged = nondeterministic_ops(step)
-    say(f"  ops flagged by torch.use_deterministic_algorithms(True, warn_only=True) "
-        f"in one refinement step: {json.dumps(flagged)}")
-    if not same_pose:
+    if not (same_pose and same_loss):
+        flagged = nondeterministic_ops(step)
+        say(f"  ops flagged by torch.use_deterministic_algorithms(True, warn_only=True) "
+            f"in one refinement step: {json.dumps(flagged)}")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             repeats_det = step_repeats(step)
@@ -901,12 +985,15 @@ def phase_pose_flagship(model, kernels, seed, k2b_table):
             f"{repeats_det}")
         say(f"  modules whose backward parts the bits from the same incoming "
             f"gradient: {json.dumps(parting_modules(step, fine.model.photographer))}")
+        fail("pose: two refinements from the same coarse cameras ended on other bits")
+    deterministic_cost(step)
+
     k2_shapes, resizes = record_step(step)
     expected = {shape: n for shape, n in REFINE_K2_CALLS}
-    say(f"  K2-bwd calls in one refinement step by shape: "
+    say(f"  K2 calls in one refinement step by shape (forward, backward): "
         f"{json.dumps({str(k): v for k, v in k2_shapes.items()})}")
-    if k2_shapes != expected:
-        fail(f"pose: K2-bwd's calls in a refinement step are not phase 2's table: {k2_shapes}")
+    if k2_shapes != {shape: (n, n) for shape, n in expected.items()}:
+        fail(f"pose: K2's calls in a refinement step are not phase 2's table: {k2_shapes}")
     if not resize_backward_repeats(resizes, seed):
         fail("pose: a decoder resize's backward changed bits run to run")
     del resizes
@@ -914,12 +1001,36 @@ def phase_pose_flagship(model, kernels, seed, k2b_table):
     gradient_check("flagship refinement step", step, fine.model.photographer, kernels)
     say("  one refinement step (8 hypotheses, forward and backward), device time by kernel:")
     averages = profile_step(step)
-    k2b_ms, k2b_calls = kernel_device_ms(averages, "lrelu_pnorm_bwd_kernel")
-    say(f"  K2-bwd in the step's profile: {k2b_ms:.4f} ms in {k2b_calls} calls; "
-        f"phase 2's launch-weighted sum {k2b_table['per_step']['ms']:.4f} ms (bound "
-        f"{k2b_table['per_step']['bound_ms']:.4f} ms)")
+    for name, kernel, table in (("K2-fwd", "lrelu_pnorm_fwd_kernel", k2_tables["fwd"]),
+                                ("K2-bwd", "lrelu_pnorm_bwd_kernel", k2_tables["bwd"])):
+        ms, calls = kernel_device_ms(averages, kernel)
+        say(f"  {name} in the step's profile: {ms:.4f} ms in {calls} calls; phase 2's "
+            f"launch-weighted sum {table['per_step']['ms']:.4f} ms (bound "
+            f"{table['per_step']['bound_ms']:.4f} ms)")
+    ms, calls = kernel_device_ms(averages, "fused_sample_bwd_grid")
+    say(f"  K1-bwd-grid in the step's profile (staged kernel and the groups' sum): "
+        f"{ms:.4f} ms in {calls} launches")
     torch.cuda.empty_cache()
     return counts
+
+
+def deterministic_cost(step) -> None:
+    """Print one refinement step's time as the package runs it (cuDNN's
+    deterministic algorithms) and with cuDNN's default selection patched in,
+    in turns: CUDA events (10 steps after 2 warm-ups) and device time
+    (torch.profiler)."""
+    from latentfusion_tpu_torch.pose import estimation
+
+    times = {"deterministic": [], "default": []}
+    for label in ("deterministic", "default", "default", "deterministic"):
+        with contextlib.ExitStack() as stack:
+            if label == "default":
+                stack.enter_context(mock.patch.object(
+                    estimation, "deterministic_cudnn", contextlib.nullcontext))
+            times[label].append((event_ms(step), time_ms(step, iters=3)))
+    say("  one refinement step, ms by CUDA events / device ms, two runs each in turns: "
+        + "; ".join(f"cuDNN {k} selection " + ", ".join(f"{e:.2f} / {d:.2f}" for e, d in v)
+                    for k, v in times.items()))
 
 
 def worst_rel(grads, ref) -> float:
@@ -1147,7 +1258,7 @@ def main() -> None:
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
 
     say("== phase 2/7: kernels against their plain versions")
-    records, k1_table = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
+    records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
     records.update(phase_train_kernels(fused_sample, args.seed))
@@ -1180,7 +1291,8 @@ def main() -> None:
 
     say("== phase 5/7: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick)")
-    pose_counts = phase_pose_flagship(flagship, kernels, args.seed, k2b_table)
+    pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
+        "fwd": k2f_tables["refinement step"], "bwd": k2b_table})
     say(f"   pose path launches: {json.dumps(pose_counts)}")
     del flagship
     torch.cuda.empty_cache()

@@ -76,12 +76,41 @@
 // shape (N=8, C=256, 16^3 samples, shared latent) g is 33.5 MB, about
 // 0.01 ms at 3.35 TB/s; the volume (4 MB) stays in L2.
 //
-// Design: as the forward, one thread per sample rebuilds its 8 corner
-// offsets, the trilinear weights and the three axes' derivative weights
-// once, then walks all C channels: g is read coalesced across the warp,
-// the 8 corner values come from the L2-resident volume, and three fp32 sums
-// collect the gradient. Each thread writes its 3 floats once; no atomics,
-// so the result is deterministic.
+// Design: two kernels, chosen by the volume's size as the forward's are.
+//
+// Staged (fused_sample_bwd_grid_staged_kernel), for every volume whose
+// channel fits in shared memory. One thread per sample walking all C
+// channels made 8 scattered scalar loads from L2 per channel, a chain of
+// 2048 at the refinement shape on 2 blocks per SM, 19x the bound. Here a
+// block stages a chunk of channels of one volume as the forward does (the
+// same interleaved slots and (y ^ 3z) swizzle: 8 channels a voxel where
+// they fit, 32 bytes in fp32, else 1 channel), then walks a tile of up to
+// 4096 consecutive samples of that volume's group, 8 a thread: a thread
+// computes a sample's taps once per chunk (8 slots, trilinear weights and
+// the three axes' derivative weights), reads the chunk's g values (each a
+// coalesced row along K), and for each corner whose three derivative
+// weights are not all 0 reads one shared vector per plane, takes its dot
+// product with g and adds it, times each axis's weight, to the sample's
+// three sums in registers. A block of 512 threads at up to 128 registers
+// fills an SM's register file, so only 16 warps hide the latency of g:
+// the next sample's coordinates and g values are loaded while a sample is
+// computed, and with one channel a chunk every sample's are loaded first.
+// The channels are split over a grid dimension of groups, each block
+// looping over its group's chunks, so that the tiles of a call with few
+// samples (the refinement shape: one volume, 32768 samples) still fill the
+// 132 SMs; one wave of blocks measured faster than two or four (PERF.md).
+// Each group writes its (N, K, 3) sums to a buffer of partials, and
+// fused_sample_bwd_grid_reduce_kernel adds the groups in a fixed order: no
+// atomics, two runs give the same bits. The plan (tile, channels a group,
+// groups) is computed in Python (ops/fused_sample.py:bwd_grid_plan), which
+// allocates the partials; one group writes dgrid directly.
+//
+// Per sample (fused_sample_bwd_grid_per_sample_kernel), for larger volumes:
+// one thread per sample rebuilds its 8 corner offsets, the trilinear
+// weights and the three axes' derivative weights once, then walks all C
+// channels: g is read coalesced across the warp, the 8 corner values come
+// from L2, and three fp32 sums collect the gradient. Each thread writes its
+// 3 floats once; no atomics.
 //
 // d/dvol (K1-bwd-vol) replaces: latentfusion_tpu/ops/pallas_fused_sample.py
 // :_kernel_bwd_vol, the second pallas_call of _fused_bwd. Training takes it:
@@ -115,6 +144,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -251,6 +281,75 @@ __device__ __forceinline__ int slot(int o, int y, int z, int mask) {
   return o ^ ((y ^ (3 * z)) & mask);
 }
 
+// Copies cn channels of one volume, src pointing at the first, into PLANES
+// planes of jp slots: slot(o) of plane p holds channels p * kPerPlane ..
+// of voxel o, zero beyond cn. Every thread of the block takes part: thread
+// t stages voxels t + i * kStagedThreads, a batch of them with their loads
+// issued together (a volume of 16^3 or more is 8 or more voxels a thread),
+// each voxel's (y, z) carried from the previous one's by addition.
+template <typename VolT, typename VT, int PLANES>
+__device__ __forceinline__ void stage_channels(
+    VT* tile, const typename Raw<VolT>::T* __restrict__ src, int j, int h,
+    int w, int jp, int mask, int cn) {
+  using T = typename Raw<VolT>::T;
+  using P = Pack<VolT, VT>;
+  constexpr int kPerPlane = sizeof(VT) / sizeof(T);
+  constexpr int kChunk = kPerPlane * PLANES;
+  constexpr int kBatch = kChunk >= 8 ? 4 : 16;
+  const int zy0 = threadIdx.x / w;
+  int x = threadIdx.x - zy0 * w, y = zy0 % h, z = zy0 / h;
+  const int step_zy = kStagedThreads / w, step_x = kStagedThreads % w;
+  const int step_y = step_zy % h, step_z = step_zy / h;
+  for (int o0 = threadIdx.x; o0 < j; o0 += kBatch * kStagedThreads) {
+    T v[kBatch][kChunk];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int o = o0 + b * kStagedThreads;
+#pragma unroll
+      for (int ci = 0; ci < kChunk; ++ci)
+        v[b][ci] = o < j && ci < cn ? __ldg(src + (int64_t)ci * j + o) : (T)0;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int o = o0 + b * kStagedThreads;
+      if (o < j) {
+        const int so = slot(o, y, z, mask);
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p) {
+          P pk;
+#pragma unroll
+          for (int e = 0; e < kPerPlane; ++e) pk.e[e] = v[b][p * kPerPlane + e];
+          tile[p * jp + so] = pk.v;
+        }
+      }
+      x += step_x;
+      y += step_y;
+      z += step_z;
+      if (x >= w) x -= w, ++y;
+      if (y >= h) y -= h, ++z;
+    }
+  }
+}
+
+// The shared-memory slots of a sample's 8 corners, in the order (z, y, x) =
+// 000, 001, 010, 011, 100, ... as in torch.
+__device__ __forceinline__ void corner_slots(int x0, int x1, int y0, int y1,
+                                             int z0, int z1, int h, int w,
+                                             int mask, int o[8]) {
+  const int r00 = (z0 * h + y0) * w, r01 = (z0 * h + y1) * w;
+  const int r10 = (z1 * h + y0) * w, r11 = (z1 * h + y1) * w;
+  const int m00 = (y0 ^ (3 * z0)) & mask, m01 = (y1 ^ (3 * z0)) & mask;
+  const int m10 = (y0 ^ (3 * z1)) & mask, m11 = (y1 ^ (3 * z1)) & mask;
+  o[0] = (r00 + x0) ^ m00;
+  o[1] = (r00 + x1) ^ m00;
+  o[2] = (r01 + x0) ^ m01;
+  o[3] = (r01 + x1) ^ m01;
+  o[4] = (r10 + x0) ^ m10;
+  o[5] = (r10 + x1) ^ m10;
+  o[6] = (r11 + x0) ^ m11;
+  o[7] = (r11 + x1) ^ m11;
+}
+
 template <typename VolT, typename OutT, typename VT, int PLANES>
 __global__ void __launch_bounds__(kStagedThreads)
 fused_sample_fwd_staged_kernel(const VolT* __restrict__ vol,
@@ -276,23 +375,9 @@ fused_sample_fwd_staged_kernel(const VolT* __restrict__ vol,
   const int cn = (int)min((int64_t)kChunk, c - c0);
 
   // Stage channels c0 .. c0 + cn - 1 of volume vi, zero beyond C.
-  const typename R::T* src =
-      reinterpret_cast<const typename R::T*>(vol) + (vi * c + c0) * j;
-  for (int o = threadIdx.x; o < j; o += kStagedThreads) {
-    const int zy = o / w;
-    const int so = slot(o, zy % h, zy / h, mask);
-#pragma unroll
-    for (int p = 0; p < PLANES; ++p) {
-      P pk;
-#pragma unroll
-      for (int e = 0; e < kPerPlane; ++e) {
-        const int ci = p * kPerPlane + e;
-        pk.e[e] = ci < cn ? __ldg(src + (int64_t)ci * j + o)
-                          : (typename R::T)0;
-      }
-      tile[p * jp + so] = pk.v;
-    }
-  }
+  stage_channels<VolT, VT, PLANES>(
+      tile, reinterpret_cast<const typename R::T*>(vol) + (vi * c + c0) * j, j,
+      h, w, jp, mask, cn);
   __syncthreads();
 
   // Walk the tile's samples (n, kk), kStagedThreads apart, with the next
@@ -313,14 +398,8 @@ fused_sample_fwd_staged_kernel(const VolT* __restrict__ vol,
     axis_taps(cur.x, w, border, &x0, &x1, &fx0, &fx1);
     axis_taps(cur.y, h, border, &y0, &y1, &fy0, &fy1);
     axis_taps(cur.z, d, border, &z0, &z1, &fz0, &fz1);
-    const int r00 = (z0 * h + y0) * w, r01 = (z0 * h + y1) * w;
-    const int r10 = (z1 * h + y0) * w, r11 = (z1 * h + y1) * w;
-    const int m00 = (y0 ^ (3 * z0)) & mask, m01 = (y1 ^ (3 * z0)) & mask;
-    const int m10 = (y0 ^ (3 * z1)) & mask, m11 = (y1 ^ (3 * z1)) & mask;
-    // Corner order (z, y, x) = 000, 001, 010, 011, 100, ... as in torch.
-    const int o[8] = {(r00 + x0) ^ m00, (r00 + x1) ^ m00, (r01 + x0) ^ m01,
-                      (r01 + x1) ^ m01, (r10 + x0) ^ m10, (r10 + x1) ^ m10,
-                      (r11 + x0) ^ m11, (r11 + x1) ^ m11};
+    int o[8];
+    corner_slots(x0, x1, y0, y1, z0, z1, h, w, mask, o);
     const float fzy[4] = {fz0 * fy0, fz0 * fy1, fz1 * fy0, fz1 * fy1};
     float acc[kChunk];
 #pragma unroll
@@ -405,14 +484,243 @@ int launch_staged_by_size(const void* vol, const void* grid, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------- d/dgrid, staged
+constexpr int kGridSamplesPerThread = 8;
+constexpr int kGridMaxTile = kStagedThreads * kGridSamplesPerThread;
+constexpr int kReduceThreads = 256;
+
+// g at offset off and the next cn - 1 channel rows (k apart) in fp32, 0
+// beyond cn or where the sample does not exist.
+template <typename GT, int N>
+__device__ __forceinline__ void load_g_row(float (&gv)[N], const GT* g,
+                                           bool valid, int64_t off, int64_t k,
+                                           int cn) {
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    gv[e] = valid && e < cn ? load_f(g + off + (int64_t)e * k) : 0.f;
+}
+
+template <typename VolT, typename GT, typename VT, int PLANES>
+__global__ void __launch_bounds__(kStagedThreads)
+fused_sample_bwd_grid_staged_kernel(
+    const VolT* __restrict__ vol, const float* __restrict__ grid,
+    const GT* __restrict__ g, float* __restrict__ partials, int64_t group,
+    int64_t n, int64_t c, int d, int h, int w, int jp, int mask, int64_t k,
+    int tile, int64_t tiles_per_volume, int group_channels, bool border) {
+  using R = Raw<VolT>;
+  using P = Pack<VolT, VT>;
+  constexpr int kPerPlane = sizeof(VT) / sizeof(typename R::T);
+  constexpr int kChunk = kPerPlane * PLANES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  VT* tile_slots = reinterpret_cast<VT*>(smem);  // PLANES planes of jp slots
+
+  const int j = d * h * w;
+  const int64_t per_volume = group * k;
+  const int64_t vi = blockIdx.x / tiles_per_volume;
+  const int64_t s0 =
+      vi * per_volume + (blockIdx.x - vi * tiles_per_volume) * tile;
+  const int64_t s1 = min(s0 + tile, (vi + 1) * per_volume);
+  const int64_t c_begin = (int64_t)blockIdx.y * group_channels;
+  const int64_t c_end = min(c_begin + group_channels, c);
+  const typename R::T* src =
+      reinterpret_cast<const typename R::T*>(vol) + vi * c * j;
+
+  float acc[kGridSamplesPerThread][3];
+#pragma unroll
+  for (int i = 0; i < kGridSamplesPerThread; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
+
+  for (int64_t c0 = c_begin; c0 < c_end; c0 += kChunk) {
+    const int cn = (int)min((int64_t)kChunk, c_end - c0);
+    __syncthreads();  // the previous chunk is no longer read
+    stage_channels<VolT, VT, PLANES>(tile_slots, src + c0 * j, j, h, w, jp,
+                                     mask, cn);
+    __syncthreads();
+
+    // Sample p's contribution at this chunk, given its g values: for each
+    // corner whose three derivative weights are not all 0 (a corner outside
+    // the volume, or clipped by border padding on every axis it moves
+    // along, adds nothing and is not read), the dot product of g with the
+    // staged channels, times each axis's weight.
+    auto add_sample = [&](float3 p, const float* gv, float* a) {
+      int x0, x1, y0, y1, z0, z1;
+      float fx[2], fy[2], fz[2], dx[2], dy[2], dz[2];
+      axis_taps(p.x, w, border, &x0, &x1, &fx[0], &fx[1], &dx[0], &dx[1]);
+      axis_taps(p.y, h, border, &y0, &y1, &fy[0], &fy[1], &dy[0], &dy[1]);
+      axis_taps(p.z, d, border, &z0, &z1, &fz[0], &fz[1], &dz[0], &dz[1]);
+      int o[8];
+      corner_slots(x0, x1, y0, y1, z0, z1, h, w, mask, o);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int bz = t >> 2, by = (t >> 1) & 1, bx = t & 1;
+        const float wx = fz[bz] * fy[by] * dx[bx];
+        const float wy = fz[bz] * dy[by] * fx[bx];
+        const float wz = dz[bz] * fy[by] * fx[bx];
+        if (wx == 0.f && wy == 0.f && wz == 0.f) continue;
+        float sv = 0.f;
+#pragma unroll
+        for (int pl = 0; pl < PLANES; ++pl) {
+          P pk;
+          pk.v = tile_slots[pl * jp + o[t]];
+#pragma unroll
+          for (int e = 0; e < kPerPlane; ++e)
+            sv = fmaf(gv[pl * kPerPlane + e], R::f(pk.e[e]), sv);
+        }
+        a[0] = fmaf(wx, sv, a[0]);
+        a[1] = fmaf(wy, sv, a[1]);
+        a[2] = fmaf(wz, sv, a[2]);
+      }
+    };
+
+    // The thread's samples s0 + threadIdx.x + i * kStagedThreads, each
+    // (n, kk). Registers bound the block to 16 warps an SM, so the loads of
+    // g (from device memory) are issued ahead: with one channel a chunk,
+    // every sample's coordinates and g value before any is computed; with
+    // eight, the next sample's while this one is computed.
+    int64_t s = s0 + threadIdx.x;
+    int64_t ni = s / k, kk = s - ni * k;
+    auto advance = [&]() {
+      s += kStagedThreads;
+      kk += kStagedThreads;
+      if (kk >= k) {
+        const int64_t q = kk / k;
+        ni += q;
+        kk -= q * k;
+      }
+    };
+    if constexpr (kChunk == 1) {
+      float3 pts[kGridSamplesPerThread];
+      float gs[kGridSamplesPerThread][1];
+#pragma unroll
+      for (int i = 0; i < kGridSamplesPerThread; ++i) {
+        pts[i] = make_float3(0.f, 0.f, 0.f);
+        if (s < s1) pts[i] = load_coords(grid + s * 3);
+        load_g_row(gs[i], g, s < s1, (ni * c + c0) * k + kk, k, cn);
+        advance();
+      }
+#pragma unroll
+      for (int i = 0; i < kGridSamplesPerThread; ++i)
+        if (s0 + threadIdx.x + (int64_t)i * kStagedThreads < s1)
+          add_sample(pts[i], gs[i], acc[i]);
+    } else {
+      float3 cur = make_float3(0.f, 0.f, 0.f);
+      float gv[kChunk];
+      load_g_row(gv, g, s < s1, (ni * c + c0) * k + kk, k, cn);
+      if (s < s1) cur = load_coords(grid + s * 3);
+#pragma unroll
+      for (int i = 0; i < kGridSamplesPerThread; ++i) {
+        const bool valid = s < s1;
+        advance();
+        const bool has_next = i + 1 < kGridSamplesPerThread && s < s1;
+        float3 next = cur;
+        if (has_next) next = load_coords(grid + s * 3);
+        float gn[kChunk];
+        load_g_row(gn, g, has_next, (ni * c + c0) * k + kk, k, cn);
+        if (valid) add_sample(cur, gv, acc[i]);
+        cur = next;
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) gv[e] = gn[e];
+      }
+    }
+  }
+
+  float* out = partials + (int64_t)blockIdx.y * n * k * 3;
+#pragma unroll
+  for (int i = 0; i < kGridSamplesPerThread; ++i) {
+    const int64_t si = s0 + threadIdx.x + (int64_t)i * kStagedThreads;
+    if (si < s1) {
+      out[si * 3] = acc[i][0];
+      out[si * 3 + 1] = acc[i][1];
+      out[si * 3 + 2] = acc[i][2];
+    }
+  }
+}
+
+// dgrid = the sum of the groups' partials, taken in group order.
+__global__ void __launch_bounds__(kReduceThreads)
+fused_sample_bwd_grid_reduce_kernel(const float* __restrict__ partials,
+                                    float* __restrict__ dgrid, int64_t m,
+                                    int groups) {
+  const int64_t i = (int64_t)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= m) return;
+  float acc = partials[i];
+#pragma unroll 4
+  for (int gi = 1; gi < groups; ++gi) acc += partials[gi * m + i];
+  dgrid[i] = acc;
+}
+
+template <typename VolT, typename GT, typename VT, int PLANES>
+int launch_bwd_grid_staged(const void* vol, const void* grid, const void* g,
+                           void* partials, void* dgrid, int64_t nv, int64_t n,
+                           int64_t c, int d, int h, int w, int jp, int64_t k,
+                           int tile, int group_channels, int groups,
+                           bool border, cudaStream_t stream) {
+  constexpr int kChunk = PLANES * sizeof(VT) / sizeof(typename Raw<VolT>::T);
+  // The plan must split the channels into whole chunks, and the groups
+  // must cover them exactly once.
+  if (tile < 1 || tile > kGridMaxTile || group_channels < 1 ||
+      (group_channels % kChunk != 0 && group_channels < c) ||
+      groups != ceil_div(c, group_channels) || groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)jp * PLANES * sizeof(VT);
+  auto kernel = fused_sample_bwd_grid_staged_kernel<VolT, GT, VT, PLANES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kRowSlots = 128 / (int)sizeof(VT);
+  const int mask = w % kRowSlots == 0 ? kRowSlots - 1 : 0;
+  const int64_t group = n / nv;
+  const int64_t tiles_per_volume = ceil_div(group * k, tile);
+  const dim3 blocks((unsigned)(nv * tiles_per_volume), (unsigned)groups);
+  kernel<<<blocks, kStagedThreads, smem, stream>>>(
+      static_cast<const VolT*>(vol), static_cast<const float*>(grid),
+      static_cast<const GT*>(g), static_cast<float*>(partials), group, n, c,
+      d, h, w, jp, mask, k, tile, tiles_per_volume, group_channels, border);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return (int)err;
+  const int64_t m = n * k * 3;
+  fused_sample_bwd_grid_reduce_kernel<<<(unsigned)ceil_div(m, kReduceThreads),
+                                        kReduceThreads, 0, stream>>>(
+      static_cast<const float*>(partials), static_cast<float*>(dgrid), m,
+      groups);
+  return (int)cudaGetLastError();
+}
+
+// 8 channels a voxel where 8 fp32 channels fit in shared memory (32 bytes;
+// bf16 takes 16), else 1 (4 or 2 bytes); the same rule as the plan's in
+// Python, whatever the dtype, so that the plan's groups are whole chunks.
+template <typename VolT, typename GT>
+int launch_bwd_grid_staged_by_size(const void* vol, const void* grid,
+                                   const void* g, void* partials, void* dgrid,
+                                   int64_t nv, int64_t n, int64_t c, int d,
+                                   int h, int w, int64_t k, int tile,
+                                   int group_channels, int groups, bool border,
+                                   cudaStream_t stream) {
+  constexpr bool kF32 = sizeof(VolT) == 4;
+  using Narrow = typename std::conditional<kF32, unsigned int,
+                                           unsigned short>::type;
+  const int64_t jp = ceil_div((int64_t)d * h * w, 32) * 32;
+  const int ji = (int)jp;
+  if (jp * 32 <= kSmemMax)
+    return launch_bwd_grid_staged<VolT, GT, uint4, kF32 ? 2 : 1>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, ji, k, tile,
+        group_channels, groups, border, stream);
+  if (jp * 4 <= kSmemMax)
+    return launch_bwd_grid_staged<VolT, GT, Narrow, 1>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, ji, k, tile,
+        group_channels, groups, border, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// --------------------------------------------------- d/dgrid, per sample
 template <typename VolT, typename GT>
 __global__ void __launch_bounds__(kThreads)
-fused_sample_bwd_grid_kernel(const VolT* __restrict__ vol,
-                             const float* __restrict__ grid,
-                             const GT* __restrict__ g,
-                             float* __restrict__ dgrid, int64_t group,
-                             int64_t c, int d, int h, int w, int64_t k,
-                             bool border) {
+fused_sample_bwd_grid_per_sample_kernel(const VolT* __restrict__ vol,
+                                        const float* __restrict__ grid,
+                                        const GT* __restrict__ g,
+                                        float* __restrict__ dgrid,
+                                        int64_t group, int64_t c, int d,
+                                        int h, int w, int64_t k, bool border) {
   const int64_t kk = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (kk >= k) return;
   const int64_t n = blockIdx.y;
@@ -464,15 +772,17 @@ fused_sample_bwd_grid_kernel(const VolT* __restrict__ vol,
 }
 
 template <typename VolT, typename GT>
-void launch_bwd_grid(const void* vol, const void* grid, const void* g,
-                     void* dgrid, int64_t nv, int64_t n, int64_t c, int d,
-                     int h, int w, int64_t k, bool border,
-                     cudaStream_t stream) {
+int launch_bwd_grid_per_sample(const void* vol, const void* grid,
+                               const void* g, void* dgrid, int64_t nv,
+                               int64_t n, int64_t c, int d, int h, int w,
+                               int64_t k, bool border, cudaStream_t stream) {
   const dim3 blocks((unsigned)((k + kThreads - 1) / kThreads), (unsigned)n);
-  fused_sample_bwd_grid_kernel<VolT, GT><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const VolT*>(vol), static_cast<const float*>(grid),
-      static_cast<const GT*>(g), static_cast<float*>(dgrid), n / nv, c, d, h,
-      w, k, border);
+  fused_sample_bwd_grid_per_sample_kernel<VolT, GT>
+      <<<blocks, kThreads, 0, stream>>>(
+          static_cast<const VolT*>(vol), static_cast<const float*>(grid),
+          static_cast<const GT*>(g), static_cast<float*>(dgrid), n / nv, c,
+          d, h, w, k, border);
+  return (int)cudaGetLastError();
 }
 
 template <typename GT>
@@ -547,6 +857,56 @@ struct Gather {
   }
 };
 
+struct StagedGrid {
+  template <typename VolT, typename GT>
+  static int run(const void* vol, const void* grid, const void* g,
+                 void* partials, void* dgrid, int64_t nv, int64_t n, int64_t c,
+                 int d, int h, int w, int64_t k, int tile, int group_channels,
+                 int groups, bool border, cudaStream_t stream) {
+    return launch_bwd_grid_staged_by_size<VolT, GT>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, k, tile,
+        group_channels, groups, border, stream);
+  }
+};
+
+struct PerSampleGrid {
+  template <typename VolT, typename GT>
+  static int run(const void* vol, const void* grid, const void* g, void*,
+                 void* dgrid, int64_t nv, int64_t n, int64_t c, int d, int h,
+                 int w, int64_t k, int, int, int, bool border,
+                 cudaStream_t stream) {
+    return launch_bwd_grid_per_sample<VolT, GT>(vol, grid, g, dgrid, nv, n, c,
+                                                d, h, w, k, border, stream);
+  }
+};
+
+template <typename L>
+int bwd_grid_dispatch(const void* vol, const void* grid, const void* g,
+                      void* partials, void* dgrid, int64_t nv, int64_t n,
+                      int64_t c, int64_t d, int64_t h, int64_t w, int64_t k,
+                      int tile, int group_channels, int groups, int border,
+                      int vol_dtype, int g_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool b = border != 0;
+  if (vol_dtype == 0 && g_dtype == 0)
+    return L::template run<float, float>(vol, grid, g, partials, dgrid, nv, n,
+                                         c, d, h, w, k, tile, group_channels,
+                                         groups, b, s);
+  if (vol_dtype == 0 && g_dtype == 1)
+    return L::template run<float, __nv_bfloat16>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, k, tile,
+        group_channels, groups, b, s);
+  if (vol_dtype == 1 && g_dtype == 0)
+    return L::template run<__nv_bfloat16, float>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, k, tile,
+        group_channels, groups, b, s);
+  if (vol_dtype == 1 && g_dtype == 1)
+    return L::template run<__nv_bfloat16, __nv_bfloat16>(
+        vol, grid, g, partials, dgrid, nv, n, c, d, h, w, k, tile,
+        group_channels, groups, b, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename L>
 int fwd_dispatch(const void* vol, const void* grid, void* out, int64_t nv,
                  int64_t n, int64_t c, int64_t d, int64_t h, int64_t w,
@@ -594,31 +954,38 @@ int lf_fused_sample_fwd_gather(const void* vol, const void* grid, void* out,
                               vol_dtype, out_dtype, stream);
 }
 
-// dtype codes: 0 = fp32, 1 = bf16, for the volume and for g. Returns
-// cudaGetLastError() after launch.
-int lf_fused_sample_bwd_grid(const void* vol, const void* grid, const void* g,
-                             void* dgrid, int64_t nv, int64_t n, int64_t c,
-                             int64_t d, int64_t h, int64_t w, int64_t k,
-                             int border, int vol_dtype, int g_dtype,
-                             void* stream) {
+// d/dgrid entry points, one per kernel; the caller picks by volume size and
+// gives the staged kernel its plan (ops/fused_sample.py:bwd_grid_plan):
+// samples a block walks, channels a group and the number of groups, with a
+// partials buffer of groups * N * K * 3 floats (dgrid itself where there is
+// one group). dtype codes: 0 = fp32, 1 = bf16, for the volume and for g.
+// Each returns the launches' CUDA error code.
+int lf_fused_sample_bwd_grid_staged(const void* vol, const void* grid,
+                                    const void* g, void* partials,
+                                    void* dgrid, int64_t nv, int64_t n,
+                                    int64_t c, int64_t d, int64_t h, int64_t w,
+                                    int64_t k, int64_t tile,
+                                    int64_t group_channels, int64_t groups,
+                                    int border, int vol_dtype, int g_dtype,
+                                    void* stream) {
   if (n == 0 || k == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool b = border != 0;
-  if (vol_dtype == 0 && g_dtype == 0)
-    launch_bwd_grid<float, float>(vol, grid, g, dgrid, nv, n, c, d, h, w, k, b,
-                                  s);
-  else if (vol_dtype == 0 && g_dtype == 1)
-    launch_bwd_grid<float, __nv_bfloat16>(vol, grid, g, dgrid, nv, n, c, d, h,
-                                          w, k, b, s);
-  else if (vol_dtype == 1 && g_dtype == 0)
-    launch_bwd_grid<__nv_bfloat16, float>(vol, grid, g, dgrid, nv, n, c, d, h,
-                                          w, k, b, s);
-  else if (vol_dtype == 1 && g_dtype == 1)
-    launch_bwd_grid<__nv_bfloat16, __nv_bfloat16>(vol, grid, g, dgrid, nv, n,
-                                                  c, d, h, w, k, b, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (c == 0) return (int)cudaMemsetAsync(dgrid, 0, (size_t)(n * k * 3) * 4,
+                                          static_cast<cudaStream_t>(stream));
+  return bwd_grid_dispatch<StagedGrid>(
+      vol, grid, g, partials, dgrid, nv, n, c, d, h, w, k, (int)tile,
+      (int)group_channels, (int)groups, border, vol_dtype, g_dtype, stream);
+}
+
+int lf_fused_sample_bwd_grid_per_sample(const void* vol, const void* grid,
+                                        const void* g, void* dgrid, int64_t nv,
+                                        int64_t n, int64_t c, int64_t d,
+                                        int64_t h, int64_t w, int64_t k,
+                                        int border, int vol_dtype, int g_dtype,
+                                        void* stream) {
+  if (n == 0 || k == 0) return 0;
+  return bwd_grid_dispatch<PerSampleGrid>(
+      vol, grid, g, nullptr, dgrid, nv, n, c, d, h, w, k, 0, 0, 0, border,
+      vol_dtype, g_dtype, stream);
 }
 
 // dtype code of g: 0 = fp32, 1 = bf16. Zeroes dvol (NV * C * D * H * W

@@ -13,15 +13,20 @@
 //
 // What bounds it on an H100: bytes. It reads x and writes y (and inv); it
 // does a few operations per element. The least time is those bytes over
-// 3.35 TB/s.
+// 3.35 TB/s. A refinement step (8 hypotheses) makes 19 calls at 8 shapes,
+// from (8, 64, 128^2) down to (8, 512, 4^2); a CEM render of 128 the same 19
+// at batch 128.
 //
-// Design. The reduction runs over dim 1, whose stride is S. One thread owns
-// one (b, s) site and loops over C with stride S; the threads of a warp own
-// consecutive sites, so each load and store is coalesced. The first pass sums
-// u^2 in fp32, the second re-reads x and writes y. The second read of a
-// block's C x 256 tile mostly comes from L2, so device memory sees x about
-// once. Channel counts need not be powers of two (196 occurs), and offsets
-// use 64-bit arithmetic: the largest call on the path has over 10^8 elements.
+// Design: the backward's (below). One thread per (b, s) site walking all C
+// channels twice gave the small calls a block or two (8 x 512 x 4^2 is 128
+// sites) and a 512-step dependent loop. Here a block of 256 threads owns a
+// tile of TS sites of one b and all C channels, the channels split over its
+// lanes; each thread keeps up to kCache of its x values in registers and
+// sums u^2 over its channels in fp32; a shuffle over the lanes of one site,
+// then a fixed-order sum over the 8 warps in shared memory, gives mean(u^2).
+// The same threads then write y from the registers and the first row of
+// lanes writes inv, so x is read from memory once (a C over kCache * 256 /
+// TS re-reads the rest). No atomics: two runs give the same bits.
 //
 // Backward replaces: latentfusion_tpu/ops/pallas_lrelu_pnorm.py:_bwd_kernel,
 // the pallas_call of _bwd_call.
@@ -36,21 +41,19 @@
 // step (8 hypotheses) makes 19 calls at 8 shapes, from (8, 64, 128^2) down to
 // (8, 512, 4^2): 50 M elements, 0.18 ms at 3.35 TB/s.
 //
-// Design. One thread per site walking C would give the small calls a block
-// or two (8 x 512 x 4^2 is 128 sites) and a 512-step dependent loop. Here a
-// block of 256 threads owns a tile of TS sites of one b and all C channels.
-// Lane l of warp w takes site l % TS and channels w * (32 / TS) + l / TS,
-// stepping by 256 / TS, so the lanes of a warp read 32 / TS channel rows of
-// TS consecutive sites: for TS = S (S below 32) that is one contiguous run
-// of (c, s) elements. Each thread keeps up to kCache of its x and g values in
-// registers and sums g * u over its channels in fp32; a shuffle over the
-// lanes of one site, then a fixed-order sum over the 8 warps in shared
-// memory, gives t. The same threads then write dx from the registers, so x
-// and g are read from memory once. TS (a power of two, at most 32) is the
-// largest that keeps a thread's channels within kCache and the call at 264
-// blocks or more (two per SM), down to 8 sites (a 32-byte sector of fp32).
-// No atomics, and each sum is taken in a fixed order: two runs give the same
-// bits.
+// Design. A block of 256 threads owns a tile of TS sites of one b and all C
+// channels. Lane l of warp w takes site l % TS and channels w * (32 / TS) +
+// l / TS, stepping by 256 / TS, so the lanes of a warp read 32 / TS channel
+// rows of TS consecutive sites: for TS = S (S below 32) that is one
+// contiguous run of (c, s) elements. Each thread keeps up to kCache of its x
+// and g values in registers and sums g * u over its channels in fp32; a
+// shuffle over the lanes of one site, then a fixed-order sum over the 8
+// warps in shared memory, gives t. The same threads then write dx from the
+// registers, so x and g are read from memory once. TS (a power of two, at
+// most 32) is the largest that keeps a thread's channels within kCache and
+// the call at 264 blocks or more (two per SM), down to 8 sites (a 32-byte
+// sector of fp32); the forward uses the same rule (tile_sites). No atomics,
+// and each sum is taken in a fixed order: two runs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +61,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCache = 16;     // channels a thread keeps in registers
+constexpr int kMinBlocks = 264;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -67,49 +73,74 @@ __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ float lrelu(float x, float slope) {
+  return x >= 0.f ? x : slope * x;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lrelu_pnorm_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       float* __restrict__ inv, int64_t c, int64_t s,
-                       int64_t sites, float slope, float eps) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= sites) return;
-  const int64_t b = i / s;
-  const int64_t base = b * c * s + (i - b * s);
-  float ss = 0.f;
-  for (int64_t ci = 0; ci < c; ++ci) {
-    float u = load_f(x + base + ci * s);
-    u = u >= 0.f ? u : slope * u;
-    ss = fmaf(u, u, ss);
-  }
-  const float r = 1.f / sqrtf(ss / (float)c + eps);
-  inv[i] = r;
-  for (int64_t ci = 0; ci < c; ++ci) {
-    float u = load_f(x + base + ci * s);
-    u = u >= 0.f ? u : slope * u;
-    store_f(y + base + ci * s, u * r);
-  }
-}
-
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kCache = 16;     // channels a thread keeps in registers
-constexpr int kMinBlocks = 264;
-
-template <typename T, typename G>
-__global__ void __launch_bounds__(kBwdThreads)
-lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
-                       const G* __restrict__ g, T* __restrict__ dx, int64_t c,
-                       int64_t s, int ts, int64_t tiles, float slope) {
-  __shared__ float part[kBwdWarps][32];
+                       float* __restrict__ inv, int64_t c, int64_t s, int ts,
+                       int64_t tiles, float slope, float eps) {
+  __shared__ float part[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane & (ts - 1);
   const int rows = 32 / ts;  // channel rows per warp
   const int64_t b = blockIdx.x / tiles;
   const int64_t site = (blockIdx.x - b * tiles) * ts + sub;
   const bool valid = site < s;
-  const int64_t step = (int64_t)kBwdWarps * rows;
+  const int64_t step = (int64_t)kWarps * rows;
+  const int64_t first = (int64_t)warp * rows + lane / ts;
+  const int64_t base = b * c * s + site;
+
+  float xs[kCache];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCache; ++i) {
+    const int64_t ci = first + i * step;
+    if (valid && ci < c) {
+      xs[i] = load_f(x + base + ci * s);
+      const float u = lrelu(xs[i], slope);
+      ss = fmaf(u, u, ss);
+    }
+  }
+  for (int64_t ci = first + kCache * step; valid && ci < c; ci += step) {
+    const float u = lrelu(load_f(x + base + ci * s), slope);
+    ss = fmaf(u, u, ss);
+  }
+  for (int off = ts; off < 32; off <<= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (lane < ts) part[warp][sub] = ss;
+  __syncthreads();
+  if (!valid) return;
+  float total = 0.f;
+#pragma unroll
+  for (int wi = 0; wi < kWarps; ++wi) total += part[wi][sub];
+  const float r = 1.f / sqrtf(total / (float)c + eps);
+  if (first == 0) inv[b * s + site] = r;
+
+#pragma unroll
+  for (int i = 0; i < kCache; ++i) {
+    const int64_t ci = first + i * step;
+    if (ci < c) store_f(y + base + ci * s, lrelu(xs[i], slope) * r);
+  }
+  for (int64_t ci = first + kCache * step; ci < c; ci += step)
+    store_f(y + base + ci * s, lrelu(load_f(x + base + ci * s), slope) * r);
+}
+
+template <typename T, typename G>
+__global__ void __launch_bounds__(kThreads)
+lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
+                       const G* __restrict__ g, T* __restrict__ dx, int64_t c,
+                       int64_t s, int ts, int64_t tiles, float slope) {
+  __shared__ float part[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane & (ts - 1);
+  const int rows = 32 / ts;  // channel rows per warp
+  const int64_t b = blockIdx.x / tiles;
+  const int64_t site = (blockIdx.x - b * tiles) * ts + sub;
+  const bool valid = site < s;
+  const int64_t step = (int64_t)kWarps * rows;
   const int64_t first = (int64_t)warp * rows + lane / ts;
   const int64_t base = b * c * s + site;
 
@@ -136,7 +167,7 @@ lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
   if (!valid) return;
   float t = 0.f;
 #pragma unroll
-  for (int wi = 0; wi < kBwdWarps; ++wi) t += part[wi][sub];
+  for (int wi = 0; wi < kWarps; ++wi) t += part[wi][sub];
   const float r = inv[b * s + site];
   const float r3t = r * r * r * (t / (float)c);
 
@@ -157,24 +188,34 @@ lrelu_pnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ inv,
   }
 }
 
-// Sites per tile for the backward; see the note at the top.
-int bwd_tile_sites(int64_t b, int64_t c, int64_t s) {
+// Sites per tile, forward and backward; see the note at the top.
+int tile_sites(int64_t b, int64_t c, int64_t s) {
   int ts = 1;
   while (ts < 32 && ts < s) ts <<= 1;
   auto blocks = [&](int t) { return b * ((s + t - 1) / t); };
-  while (ts > 8 && (c * ts > (int64_t)kCache * kBwdThreads ||
+  while (ts > 8 && (c * ts > (int64_t)kCache * kThreads ||
                     blocks(ts) < kMinBlocks))
     ts >>= 1;
   return ts;
+}
+
+template <typename T>
+void launch_fwd(const void* x, void* y, void* inv, int64_t b, int64_t c,
+                int64_t s, float slope, float eps, cudaStream_t st) {
+  const int ts = tile_sites(b, c, s);
+  const int64_t tiles = (s + ts - 1) / ts;
+  lrelu_pnorm_fwd_kernel<T><<<(unsigned)(b * tiles), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<float*>(inv),
+      c, s, ts, tiles, slope, eps);
 }
 
 template <typename T, typename G>
 void launch_bwd(const void* x, const void* inv, const void* g, void* dx,
                 int64_t b, int64_t c, int64_t s, float slope,
                 cudaStream_t st) {
-  const int ts = bwd_tile_sites(b, c, s);
+  const int ts = tile_sites(b, c, s);
   const int64_t tiles = (s + ts - 1) / ts;
-  lrelu_pnorm_bwd_kernel<T, G><<<(unsigned)(b * tiles), kBwdThreads, 0, st>>>(
+  lrelu_pnorm_bwd_kernel<T, G><<<(unsigned)(b * tiles), kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(inv),
       static_cast<const G*>(g), static_cast<T*>(dx), c, s, ts, tiles, slope);
 }
@@ -187,18 +228,12 @@ extern "C" {
 int lf_lrelu_pnorm_fwd(const void* x, void* y, void* inv, int64_t b,
                        int64_t c, int64_t s, float slope, float eps, int dtype,
                        void* stream) {
-  const int64_t sites = b * s;
-  if (sites == 0) return 0;
-  const unsigned blocks = (unsigned)((sites + kThreads - 1) / kThreads);
+  if (b * s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    lrelu_pnorm_fwd_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y),
-        static_cast<float*>(inv), c, s, sites, slope, eps);
+    launch_fwd<float>(x, y, inv, b, c, s, slope, eps, st);
   else if (dtype == 1)
-    lrelu_pnorm_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        static_cast<float*>(inv), c, s, sites, slope, eps);
+    launch_fwd<__nv_bfloat16>(x, y, inv, b, c, s, slope, eps, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -17,16 +17,21 @@ and whose backward is K1-bwd-grid and K1-bwd-vol.
 On a CUDA tensor each wrapper launches its kernel of ``csrc/fused_sample.cu``
 (see the note there) or raises; on a CPU tensor it runs its plain PyTorch
 version, the same function written out as an explicit 8-corner gather (or
-scatter). The forward has two kernels, chosen by the volume's size alone
-(``fwd_kernel``): the staged kernel, which copies chunks of channels into
-shared memory, wherever one channel fits there (every zoo family's latent),
-and the gather kernel, which reads the corners from L2, for larger volumes.
-``LAUNCHES`` (staged), ``GATHER_LAUNCHES``, ``BWD_GRID_LAUNCHES`` and
-``BWD_VOL_LAUNCHES`` count kernel launches.
+scatter). The forward and d/dgrid each have two kernels, chosen by the
+volume's size alone (``fwd_kernel``, ``bwd_grid_kernel``): a staged kernel,
+which copies chunks of channels into shared memory, wherever one channel
+fits there (every zoo family's latent), and for larger volumes a kernel
+that reads the corners from L2 (the forward's gather kernel, d/dgrid's
+per-sample kernel). d/dgrid's staged kernel splits the channels into
+groups and adds the groups' partial sums in a fixed order, by the plan of
+``bwd_grid_plan``. ``LAUNCHES`` (forward, staged), ``GATHER_LAUNCHES``,
+``BWD_GRID_LAUNCHES`` (d/dgrid, staged), ``BWD_GRID_PER_SAMPLE_LAUNCHES``
+and ``BWD_VOL_LAUNCHES`` count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,20 +41,77 @@ from .grid_sample import _unnormalize
 LAUNCHES = 0
 GATHER_LAUNCHES = 0
 BWD_GRID_LAUNCHES = 0
+BWD_GRID_PER_SAMPLE_LAUNCHES = 0
 BWD_VOL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PADDING = ("zeros", "border")
-# The staged kernel keeps at least 4 bytes of every voxel, the voxels
-# rounded up to 32, in the 227 KB of shared memory a block may use.
-_STAGED_MAX_VOXELS = 232448 // 4
+# The staged kernels keep at least 4 bytes of every voxel, the voxels
+# rounded up to 32, in the 227 KB of shared memory a block may use; 32
+# bytes (8 fp32 channels) where those fit.
+_SMEM_BYTES = 232448
+# d/dgrid's staged kernel: a block of 512 threads walks up to 8 samples a
+# thread, and takes an H100 SM to itself (its registers fill the register
+# file), so the plan fills one wave of the 132 SMs.
+_BWD_GRID_MAX_TILE = 4096
+_SMS = 132
+
+
+def _padded_voxels(volume_shape) -> int:
+    return -(-int(volume_shape[2] * volume_shape[3] * volume_shape[4]) // 32) * 32
 
 
 def fwd_kernel(volume_shape) -> str:
     """The forward kernel that serves a volume of ``volume_shape`` (NV, C,
     D, H, W): "staged" or "gather"."""
-    voxels = -(-int(volume_shape[2] * volume_shape[3] * volume_shape[4]) // 32) * 32
-    return "staged" if voxels <= _STAGED_MAX_VOXELS else "gather"
+    return "staged" if _padded_voxels(volume_shape) * 4 <= _SMEM_BYTES else "gather"
+
+
+def bwd_grid_kernel(volume_shape) -> str:
+    """The d/dgrid kernel that serves a volume of ``volume_shape``:
+    "staged" or "per_sample"."""
+    return "staged" if fwd_kernel(volume_shape) == "staged" else "per_sample"
+
+
+class BwdGridPlan(NamedTuple):
+    """How d/dgrid's staged kernel splits a call: blocks of ``tile``
+    consecutive samples of one volume's group by groups of
+    ``group_channels`` channels (whole chunks of ``chunk``, the channels
+    staged at once), ``groups`` of them, whose partial sums are added in
+    group order."""
+    tile: int
+    chunk: int
+    group_channels: int
+    groups: int
+    blocks: int
+
+    def channel_ranges(self, c: int):
+        """Each group's channels [start, stop), in the order they are
+        added."""
+        return [(i * self.group_channels, min((i + 1) * self.group_channels, c))
+                for i in range(self.groups)]
+
+
+def bwd_grid_plan(volume_shape, n: int, k: int) -> BwdGridPlan:
+    """The staged d/dgrid kernel's plan for a volume of ``volume_shape``
+    and a grid of ``n`` batches of ``k`` samples: tiles as long as a block
+    holds (so a block stages the volume's channels as few times as it can),
+    and the channels split into as many groups as fit the tiles in one wave
+    of blocks, one an SM. A group of more channels stages more chunks in
+    turn; more groups write more partial sums."""
+    nv, c = int(volume_shape[0]), int(volume_shape[1])
+    if bwd_grid_kernel(volume_shape) != "staged":
+        raise ValueError(f"volume {tuple(volume_shape)}: one channel does not "
+                         f"fit in shared memory")
+    chunk = 8 if _padded_voxels(volume_shape) * 32 <= _SMEM_BYTES else 1
+    chunks = max(1, -(-c // chunk))
+    per_volume = n // nv * k
+    tile = min(_BWD_GRID_MAX_TILE, per_volume)
+    tiles = nv * -(-per_volume // tile)
+    groups = min(chunks, max(1, _SMS // tiles))
+    group_channels = chunk * -(-chunks // groups)
+    groups = max(1, -(-c // group_channels))
+    return BwdGridPlan(tile, chunk, group_channels, groups, tiles * groups)
 
 
 def _check_shapes(volume_shape, grid, padding_mode):
@@ -232,7 +294,7 @@ def grid_sample_3d_bwd_grid(volume: torch.Tensor, grid: torch.Tensor,
                             padding_mode: str = "zeros") -> torch.Tensor:
     """dL/dgrid of ``grid_sample_3d_fused(volume, grid)`` given dL/dout
     ``g`` (N, C, Do, Ho, Wo); returns fp32 shaped like ``grid``."""
-    global BWD_GRID_LAUNCHES
+    global BWD_GRID_LAUNCHES, BWD_GRID_PER_SAMPLE_LAUNCHES
     if volume.device.type == "cpu":
         return grid_sample_3d_bwd_grid_plain(volume, grid, g, padding_mode)
     if volume.device.type != "cuda":
@@ -245,19 +307,32 @@ def grid_sample_3d_bwd_grid(volume: torch.Tensor, grid: torch.Tensor,
         raise ValueError("volume, grid and g must be contiguous")
     k = grid[0, ..., 0].numel()
     dgrid = torch.empty(grid.shape, dtype=torch.float32, device=volume.device)
+    kernel = bwd_grid_kernel(volume.shape)
     lib = _build.load("fused_sample")
-    fn = lib.lf_fused_sample_bwd_grid
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = getattr(lib, f"lf_fused_sample_bwd_grid_{kernel}")
+    args = [volume.data_ptr(), grid.data_ptr(), g.data_ptr()]
+    if kernel == "staged":
+        plan = bwd_grid_plan(volume.shape, n, k)
+        partials = dgrid if plan.groups == 1 else torch.empty(
+            (plan.groups, *grid.shape), dtype=torch.float32, device=volume.device)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 10
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        args += [partials.data_ptr(), dgrid.data_ptr(), nv, n, c, d, h, w, k,
+                 plan.tile, plan.group_channels, plan.groups]
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        args += [dgrid.data_ptr(), nv, n, c, d, h, w, k]
     fn.restype = ctypes.c_int
     with torch.cuda.device(volume.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(volume.data_ptr(), grid.data_ptr(), g.data_ptr(),
-                    dgrid.data_ptr(), nv, n, c, d, h, w, k,
-                    int(padding_mode == "border"), _DTYPE_CODES[volume.dtype],
+        status = fn(*args, int(padding_mode == "border"), _DTYPE_CODES[volume.dtype],
                     _DTYPE_CODES[g.dtype], stream)
-    _build.check(lib, status, "fused_sample_bwd_grid")
-    BWD_GRID_LAUNCHES += 1
+    _build.check(lib, status, f"fused_sample_bwd_grid_{kernel}")
+    if kernel == "staged":
+        BWD_GRID_LAUNCHES += 1
+    else:
+        BWD_GRID_PER_SAMPLE_LAUNCHES += 1
     return dgrid
 
 

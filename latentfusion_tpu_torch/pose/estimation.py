@@ -14,6 +14,7 @@ multi-object ``estimate_batch``, and the ``latent`` loss term.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from collections import defaultdict
@@ -378,6 +379,22 @@ class CrossEntropyPoseEstimator(PoseEstimator):
 
 
 # ------------------------------------------------------------------- gradient
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Select cuDNN's deterministic convolution algorithms, then restore the
+    caller's choice. The backward-data algorithm that cuDNN picks by default
+    for one of the flagship decoder's convolutions does not repeat its bits,
+    so without this two refinements from the same cameras part. Only this flag
+    changes: ``torch.backends.cudnn.flags`` would also reset ``enabled``
+    and ``allow_tf32`` to its own defaults."""
+    previous = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = previous
+
+
 class GradientPoseEstimator(PoseEstimator):
     """Gradient refinement of the hypotheses' log-quaternion, translation
     and zoom viewport, with a per-hypothesis optimizer (Adam, AdamW, SGD or
@@ -432,10 +449,11 @@ class GradientPoseEstimator(PoseEstimator):
         """The per-hypothesis ranking loss (N,) of the zoomed ``camera`` and
         the gradient of the optimized loss (summed over hypotheses, divided
         by their count) with respect to its log_quaternion, translation and
-        viewport."""
+        viewport. The forward and the backward run on cuDNN's deterministic
+        algorithms, so a step repeats its bits (``deterministic_cudnn``)."""
         leaves = {k: v.detach().requires_grad_()
                   for k, v in pu.camera_params(camera).items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), deterministic_cudnn():
             cam = camera.replace(**leaves)
             z_depth, z_mask_logits = self._render_zoomed(z_obj, cam)
             loss_dict = self.loss_func(target_obs, z_depth, z_mask_logits, cam)

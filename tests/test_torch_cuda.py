@@ -6,7 +6,9 @@ run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
 
 Tolerances: fp32 outputs 1e-5 (same arithmetic, other summation order; for
 K1-bwd-vol an order that its atomics change from run to run); bf16 outputs
-one bf16 rounding step, 2^-7 relative to the largest value.
+one bf16 rounding step, 2^-7 relative to the largest value. The kernels
+without atomics (K1-fwd, K1-bwd-grid, K2-fwd, K2-bwd) must also give the
+same bits when run again.
 """
 import numpy as np
 import pytest
@@ -63,12 +65,22 @@ def test_k1_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, dhw, k):
     ref = fused_sample.grid_sample_3d_plain(vol, grid, padding_mode, dtype)
     assert out.shape == ref.shape == (n, c, *k) and out.dtype == dtype
     assert _err(out, ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
+    assert torch.equal(fused_sample.grid_sample_3d_fused(vol, grid, padding_mode, dtype), out)
+
+
+# The 8 shapes of a flagship refinement step's 19 calls (8 hypotheses).
+REFINE_K2_SHAPES = [(8, 256, 16, 16, 16), (8, 256, 16, 16), (8, 512, 16, 16),
+                    (8, 512, 8, 8), (8, 512, 4, 4), (8, 196, 32, 32),
+                    (8, 128, 64, 64), (8, 64, 128, 128)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33)])
+@pytest.mark.parametrize("shape", [(4, 196, 8, 8), (2, 256, 4, 4, 4), (3, 64, 33),
+                                   (2, 5000, 3), *REFINE_K2_SHAPES])
 def test_k2_kernel_matches_plain(cuda, dtype, shape):
+    """Against the plain version, and the same bits when run again; C=5000
+    overflows the channels a thread keeps in registers."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
     before = lrelu_pnorm.LAUNCHES
@@ -79,24 +91,38 @@ def test_k2_kernel_matches_plain(cuda, dtype, shape):
     assert y.dtype == dtype and inv.shape == inv_ref.shape
     assert _err(y, y_ref) <= (FP32_TOL if dtype == torch.float32 else BF16_TOL)
     assert _err(inv, inv_ref) <= FP32_TOL
+    y2, inv2 = lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)
+    assert torch.equal(y2, y) and torch.equal(inv2, inv)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nv,n,k", [(1, 8, (16, 16, 16)), (3, 6, (5, 7, 9))])
-def test_k1_bwd_grid_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, k):
+@pytest.mark.parametrize("nv,n,c,dhw,k", [
+    (1, 8, 40, (16, 16, 16), (16, 16, 16)), (3, 6, 40, (16, 16, 16), (5, 7, 9)),
+    (2, 6, 20, (5, 7, 9), (6, 5, 4)),          # a non-cubic volume, C not a multiple of 8
+    (1, 8, 256, (16, 16, 16), (16, 16, 16)),   # flagship refinement, 8 hypotheses
+    (4, 4, 64, (32, 32, 32), (32, 32, 32)),    # K3's shape: one channel staged at a time
+    (1, 2, 8, (48, 48, 48), (16, 16, 16)),     # a channel over 227 KB: per sample
+], ids=["shared", "groups", "noncubic", "refine", "k3", "per_sample"])
+def test_k1_bwd_grid_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, dhw, k):
+    """Against the plain version through the kernel its volume routes to,
+    and the same bits when run again."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    vol = torch.randn(nv, 40, 16, 16, 16, generator=g, device=cuda).to(dtype)
+    vol = torch.randn(nv, c, *dhw, generator=g, device=cuda).to(dtype)
     grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
-    gout = torch.randn(n, 40, *k, generator=g, device=cuda).to(dtype)
-    before = fused_sample.BWD_GRID_LAUNCHES
+    gout = torch.randn(n, c, *k, generator=g, device=cuda).to(dtype)
+    counter = {"staged": "BWD_GRID_LAUNCHES", "per_sample": "BWD_GRID_PER_SAMPLE_LAUNCHES"}[
+        fused_sample.bwd_grid_kernel(vol.shape)]
+    assert (counter == "BWD_GRID_PER_SAMPLE_LAUNCHES") == (dhw == (48, 48, 48))
+    before = getattr(fused_sample, counter)
     out = fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding_mode)
     torch.cuda.synchronize()
-    assert fused_sample.BWD_GRID_LAUNCHES == before + 1
+    assert getattr(fused_sample, counter) == before + 1
     ref = fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding_mode)
     assert out.shape == grid.shape and out.dtype == torch.float32
     assert _err(out, ref) <= FP32_TOL
+    assert torch.equal(fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding_mode), out)
 
 
 @pytest.mark.cuda
@@ -119,12 +145,6 @@ def test_k1_bwd_vol_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, k)
     assert dvol.dtype == torch.float32 and dvol.shape == shape
     ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, shape, padding_mode)
     assert _err(dvol, ref) <= FP32_TOL
-
-
-# The 8 shapes of a flagship refinement step's 19 calls (8 hypotheses).
-REFINE_K2_SHAPES = [(8, 256, 16, 16, 16), (8, 256, 16, 16), (8, 512, 16, 16),
-                    (8, 512, 8, 8), (8, 512, 4, 4), (8, 196, 32, 32),
-                    (8, 128, 64, 64), (8, 64, 128, 128)]
 
 
 @pytest.mark.cuda

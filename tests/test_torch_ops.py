@@ -486,6 +486,95 @@ def test_k1_bwd_grid_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, ca
     close_rel(out, torch.autograd.grad(fwd, grid_t, torch.from_numpy(g))[0], OPS_TOL)
 
 
+# The staged K1-bwd-grid kernel's launch plan: the flagship refinement
+# decode (8 hypotheses, 16^3 samples, one 256-channel 16^3 latent), K3's
+# shape (4 unshared 64-channel 32^3 volumes), the demo refinement decode (16
+# hypotheses, 8^3 samples of a 128-channel 8^3 latent), and small calls
+# whose C is not a multiple of the 8-channel chunk.
+PLAN_CASES = {"refine": ((1, 256, 16, 16, 16), 8, 4096),
+              "k3": ((4, 64, 32, 32, 32), 4, 32768),
+              "demo_refine": ((1, 128, 8, 8, 8), 16, 512),
+              "c20_groups": ((2, 20, 5, 7, 9), 6, 120),
+              "c3_narrow": ((1, 3, 38, 38, 38), 2, 512),
+              "c250_refine": ((1, 250, 16, 16, 16), 8, 4096)}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_k1_bwd_grid_plan_covers_every_channel_once(case):
+    """The groups cover channels 0..C-1 once, in order, each of whole
+    chunks but the last; the tiles fit a block (8 samples a thread)."""
+    shape, n, k = PLAN_CASES[case]
+    plan = fused_sample.bwd_grid_plan(shape, n, k)
+    ranges = plan.channel_ranges(shape[1])
+    assert len(ranges) == plan.groups
+    covered = [ch for start, stop in ranges for ch in range(start, stop)]
+    assert covered == list(range(shape[1]))
+    assert all(stop - start == plan.group_channels for start, stop in ranges[:-1])
+    assert plan.group_channels % plan.chunk == 0
+    assert plan.chunk == (8 if shape[2] * shape[3] * shape[4] <= 7264 else 1)
+    assert 1 <= plan.tile <= 4096
+    tiles = shape[0] * -(-(n // shape[0] * k) // plan.tile)
+    assert plan.blocks == tiles * plan.groups
+
+
+@pytest.mark.parametrize("case", ["refine", "k3"])
+def test_k1_bwd_grid_plan_fills_one_wave(case):
+    """At the main path's shape (one volume, 32768 samples) and at K3's,
+    the tiles are as long as a block holds and the channel groups fill one
+    wave of the H100's 132 SMs as far as whole groups allow, with partial
+    sums of at most a fifth of the bytes of g."""
+    shape, n, k = PLAN_CASES[case]
+    plan = fused_sample.bwd_grid_plan(shape, n, k)
+    tiles = plan.blocks // plan.groups
+    assert plan.tile == 4096 and tiles == n * k // 4096
+    assert plan.blocks <= 132 < plan.blocks + tiles
+    assert plan.groups * n * k * 3 <= 0.2 * n * shape[1] * k
+
+
+@pytest.mark.parametrize("dhw", [(16, 16, 16), (32, 32, 32), (38, 38, 38), (39, 39, 39),
+                                 (48, 48, 48), (8, 64, 113), (8, 64, 114), (1, 1, 58112),
+                                 (1, 1, 58113)])
+def test_k1_bwd_grid_per_sample_kernel_where_a_channel_exceeds_shared_memory(dhw):
+    """The per-sample kernel serves exactly the volumes whose channel, 4
+    bytes a voxel with the voxels rounded up to 32, exceeds the 227 KB
+    (232448 bytes) of shared memory a block may use; the plan refuses
+    them."""
+    shape = (1, 8, *dhw)
+    voxels = -(-dhw[0] * dhw[1] * dhw[2] // 32) * 32
+    per_sample = voxels * 4 > 232448
+    assert fused_sample.bwd_grid_kernel(shape) == ("per_sample" if per_sample else "staged")
+    assert fused_sample.fwd_kernel(shape) == ("gather" if per_sample else "staged")
+    if per_sample:
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_sample.bwd_grid_plan(shape, 2, 512)
+    else:
+        assert fused_sample.bwd_grid_plan(shape, 2, 512).groups >= 1
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("nv,n,c,s,k", [(1, 4, 20, (8, 8, 8), (8, 8, 8)),
+                                        (2, 6, 20, (5, 7, 9), (4, 5, 6)),
+                                        (1, 2, 3, (38, 38, 38), (4, 4, 4))],
+                         ids=["shared_c20", "groups_noncubic", "narrow_chunks"])
+def test_k1_bwd_grid_plan_group_sums_match_pallas_vjp(rng, padding_mode, nv, n, c, s, k):
+    """The staged kernel's arithmetic order across channels: the plain
+    d/dgrid of each of the plan's channel groups, added in the plan's
+    order, against jax.vjp of the Pallas kernel (interpret mode)."""
+    vol, grid = _k1_inputs(rng, nv, n, c=c, s=s, k=k)
+    g = rng.randn(n, c, *k).astype(np.float32)
+    plan = fused_sample.bwd_grid_plan(vol.shape, n, int(np.prod(k)))
+    assert plan.groups > 1
+    out = None
+    for start, stop in plan.channel_ranges(c):
+        part = fused_sample.grid_sample_3d_bwd_grid_plain(
+            torch.from_numpy(np.ascontiguousarray(vol[:, start:stop])), torch.from_numpy(grid),
+            torch.from_numpy(np.ascontiguousarray(g[:, start:stop])), padding_mode)
+        out = part if out is None else out + part
+    _, vjp = jax.vjp(lambda gr: j_fused(jnp.asarray(vol), gr, padding_mode=padding_mode),
+                     jnp.asarray(grid))
+    close_rel(out, vjp(jnp.asarray(g))[0], OPS_TOL)
+
+
 def test_k1_function_backward_on_cpu(rng):
     """grid_sample_3d (the autograd Function) on CPU: its gradients are the
     plain K1-bwd-grid and K1-bwd-vol, each only where asked for, and no

@@ -382,6 +382,48 @@ def test_refinement_stops_at_convergence_like_jax(gt_setup, oracles):
     assert len(best) == 2
 
 
+CUDNN_FLAGS = ("deterministic", "enabled", "benchmark", "allow_tf32")
+
+
+@pytest.mark.parametrize("flags", [(False, True, False, True), (True, False, True, False),
+                                   (False, False, False, False)],
+                         ids=["torch_defaults", "all_flipped", "all_off"])
+def test_loss_and_grads_selects_deterministic_cudnn_and_restores_flags(gt_setup, oracles,
+                                                                       flags):
+    """The refinement step's forward and backward run with cuDNN's
+    deterministic algorithms selected and its other flags as the caller set
+    them (TF32 is not switched on, cuDNN not off); afterwards, and after a
+    step that raises, torch.backends.cudnn's flags are as the caller left
+    them."""
+    jgt, _, ttarget = gt_setup
+    _, rt = _refiners(oracles, num_iters=1, converge_patience=50)
+    loss_func, seen = rt.loss_func, []
+
+    def spy(*args, **kwargs):
+        seen.append(tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS))
+        return loss_func(*args, **kwargs)
+
+    cam = t_camera(perturbed(jgt, 4, 2, 0.01, 0.05)).zoom(None, rt.model.input_size,
+                                                           rt.model.camera_dist)
+    prev = {k: getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS}
+    try:
+        for k, v in zip(CUDNN_FLAGS, flags):
+            setattr(torch.backends.cudnn, k, v)
+        rt.loss_func = spy
+        _, grads = rt.loss_and_grads(None, ttarget, cam)
+        after = tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS)
+        rt.loss_func = lambda *a, **kw: 1 / 0
+        with pytest.raises(ZeroDivisionError):
+            rt.loss_and_grads(None, ttarget, cam)
+        after_raise = tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS)
+    finally:
+        for k, v in prev.items():
+            setattr(torch.backends.cudnn, k, v)
+    assert seen == [(True, *flags[1:])]
+    assert set(grads) == {"log_quaternion", "translation", "viewport"}
+    assert after == after_raise == flags
+
+
 def _to_state(params):
     leaves = jax.tree_util.tree_flatten_with_path(params)[0]
     return from_jax_params({jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves})
