@@ -11,19 +11,22 @@ line after it ends:
    started together.
 2. kernels: each kernel against its plain PyTorch version at the shapes of
    the build + render path, of the refinement backward and of the training
-   step (K1-bwd-vol on the flagship recipe's decode and encode grids), with
-   kernel, plain and library times (device time by torch.profiler, warm-up
+   step (K1-bwd-vol on the flagship recipe's decode and encode grids, with
+   the share of samples border padding clips, its plan, and its time under
+   other plans), with kernel, plain and library times (device time by torch.profiler, warm-up
    excluded; the redesigned kernels also by CUDA events back to back): K1-fwd
    at the render (128 hypotheses) and refinement (8) shapes, K1-bwd-grid at
    the refinement shape, K2-fwd at the 8 shapes of a refinement step's 19
    calls and of a CEM render's (batch 128), K2-bwd at those of a refinement
-   step, each run twice for the same bits, the K2 tables with their
-   launch-weighted sums. Then K1 at a shape of the tiled sampler K3
-   (volumes over 17^3), which K1 serves, and the kernels that serve volumes
-   whose channel does not fit in shared memory (K1-fwd's gather kernel,
-   K1-bwd-grid's per-sample kernel) at vol (1, 8, 48^3); each K1-fwd timing
+   step, each run twice for the same bits (every kernel but K1-bwd-vol's
+   atomic one), the K2 tables with their launch-weighted sums. Then K1 at a
+   shape of the tiled sampler K3 (volumes over 17^3), which K1 serves, and
+   the kernels that serve volumes whose channel does not fit in shared
+   memory (K1-fwd's gather kernel, K1-bwd-grid's per-sample kernel,
+   K1-bwd-vol's atomic kernel) at vol (1, 8, 48^3); each K1-fwd timing
    names the kernel that served it, and the launch counters must show which
-   K1-bwd-grid kernel ran (staged at 16^3 and 32^3).
+   K1-bwd-grid and K1-bwd-vol kernel ran (staged and tiled at 16^3 and
+   32^3).
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -58,8 +61,11 @@ line after it ends:
    and mask BCE at weight 25, Adam lr 1e-3, betas (0, 0.99). One step's
    gradient must agree with the plain versions (see gradient_check);
    the launch counters must show K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd on
-   it. Then ms per step, peak memory and a profile of one step, and a run
-   on a pool of batches whose held-out loss must fall.
+   it (the check also prints, ungated, whether the step's gradients repeat
+   their bits: training keeps cuDNN's default selection). Then ms per
+   step, peak memory and a profile of one step, a run on a pool of batches
+   whose held-out loss must fall, and ms per step with K1-bwd-vol's tiled
+   kernel and with the atomic kernel it replaced, in turns.
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
@@ -472,11 +478,57 @@ def lib_bwd_vol(vol_shape, grid, g, padding):
     return run
 
 
+def clipped_share(grid, dhw) -> float:
+    """The share of samples that border padding clips on at least one axis
+    of a volume of ``dhw`` (D, H, W)."""
+    size = torch.tensor(dhw[::-1], dtype=torch.float32, device=grid.device)
+    x = ((grid + 1) * size - 1) / 2
+    return float(((x < 0) | (x > size - 1)).any(-1).float().mean())
+
+
+def bwd_vol_twice(fused_sample, grid, gout, shape, padding, kernel="tiled"):
+    """K1-bwd-vol twice on one input; fails unless both calls went through
+    ``kernel`` ("tiled" or "atomic") by its launch counter."""
+    counter = {"tiled": "BWD_VOL_LAUNCHES", "atomic": "BWD_VOL_ATOMIC_LAUNCHES"}[kernel]
+    before = getattr(fused_sample, counter)
+    out = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding)
+    again = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding)
+    if getattr(fused_sample, counter) != before + 2:
+        fail(f"K1-bwd-vol at vol {tuple(shape)} did not go through the {kernel} kernel")
+    return out, again
+
+
+def bwd_vol_alternatives(fused_sample, grid, gout, shape, padding):
+    """K1-bwd-vol's tiled kernel under other plans than its own: one slice,
+    twice the plan's slices, and half its channels a block; each plan's
+    (channels, slices, blocks) beside its device ms."""
+    n, k = grid.shape[0], grid[0, ..., 0].numel()
+    plan = fused_sample.bwd_vol_plan(shape, n, k)
+    per_volume = n // shape[0] * k
+    rows = []
+    for channels, slices in ((plan.channels, 1), (plan.channels, 2 * plan.slices),
+                             (max(1, plan.channels // 2), plan.slices)):
+        slice_len = -(-per_volume // slices)
+        slice_len = -(-slice_len // 256) * 256
+        slices = -(-per_volume // slice_len)
+        alt = plan._replace(channels=channels, slices=slices, slice_len=slice_len,
+                            smem=fused_sample._bwd_vol_smem(channels, plan.class_words,
+                                                            plan.shared_taps),
+                            blocks=shape[0] * slices * -(-shape[1] // channels))
+        if alt == plan:
+            continue
+        with mock.patch.object(fused_sample, "bwd_vol_plan", lambda *_: alt):
+            ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding))
+        rows.append(((alt.channels, alt.slices, alt.blocks), round(ms, 4)))
+    return rows
+
+
 def phase_train_kernels(fused_sample, seed):
     """K1-bwd-vol against its plain version on the grids of the flagship
     training microbatch (4 objects): decode (each object's latent read by
-    its 24 output views) and encode (one camera volume per input view);
-    returns its timing record at the decode shape."""
+    its 24 output views) and encode (one camera volume per input view), each
+    run twice for the same bits; returns its timing record at the decode
+    shape and its rows at both shapes."""
     from latentfusion_tpu_torch import transforms, zoo
     from latentfusion_tpu_torch.recon.utils import process_batch
 
@@ -489,34 +541,48 @@ def phase_train_kernels(fused_sample, seed):
              "encode": (objects * TRAIN_IN,
                         transforms.camera_to_object_grid(proc["in"]["camera"], 16))}
     del proc
-    records = {}
+    records, rows = {}, {}
     for label, (nv, grid) in grids.items():
         n, c = grid.shape[0], 256
         shape = (nv, c, 16, 16, 16)
+        plan = fused_sample.bwd_vol_plan(shape, n, grid[0, ..., 0].numel())
+        say(f"  K1-bwd-vol {label} NV={nv} N={n} C={c} 16^3: samples clipped by border "
+            f"padding on at least one axis {clipped_share(grid, shape[2:]):.4f}; tiled "
+            f"kernel {plan}")
         gout = torch.randn(n, c, 16, 16, 16, generator=g, device=dev)
         for padding in ("border", "zeros"):
             for dtype in (torch.float32, torch.bfloat16):
                 gd = gout.to(dtype)
-                out = fused_sample.grid_sample_3d_bwd_vol(grid, gd, shape, padding)
+                out, again = bwd_vol_twice(fused_sample, grid, gd, shape, padding)
                 ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gd, shape, padding)
                 torch.cuda.synchronize()
-                err = rel_err(out, ref)
-                say(f"  K1-bwd-vol {label} NV={nv} N={n} C={c} 16^3 {padding} g "
-                    f"{str(dtype)[6:]}: rel err {err:.3g} (tol {FP32_TOL:.3g})")
+                err, same = rel_err(out, ref), bool(torch.equal(out, again))
+                say(f"  K1-bwd-vol {label} {padding} g {str(dtype)[6:]}: rel err {err:.3g} "
+                    f"(tol {FP32_TOL:.3g}); run twice, same bits: {same}")
                 if not err <= FP32_TOL:
                     fail(f"K1-bwd-vol {label} {padding} {dtype} disagrees with plain")
-        ms = time_ms(lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, "border"))
+                if not same:
+                    fail(f"K1-bwd-vol {label} {padding} {dtype} is not bit-reproducible")
+                del gd, out, again, ref
+        run = lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, "border")
+        ms, events = time_ms(run), event_ms(run)
         plain = time_ms(lambda: fused_sample.grid_sample_3d_bwd_vol_plain(
             grid, gout, shape, "border"), iters=3)
         lib = time_ms(lib_bwd_vol(shape, grid, gout, "border"))
-        out = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, "border")
+        out = run()
         ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, shape, "border")
         nbytes = (gout.numel() + grid.numel() + out.numel()) * 4
         # 8 corners: a multiply and an add each per sample and channel,
         # plus ~40 operations per sample for the taps.
         b, by = bound_ms(nbytes, 16.0 * gout.numel() + 40.0 * grid[..., 0].numel())
-        say(f"  K1-bwd-vol {label}: {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
-            f"{plain:.3f} ms, aten backward + group sum {lib:.4f} ms")
+        alts = bwd_vol_alternatives(fused_sample, grid, gout, shape, "border")
+        say(f"  K1-bwd-vol {label}, border float32: {ms:.4f} ms (back to back by CUDA "
+            f"events {events:.4f} ms), bound {b:.4f} ms ({by}), plain {plain:.3f} ms, aten "
+            f"backward + group sum {lib:.4f} ms (device time); other plans (channels a "
+            f"block, slices, blocks): ms {json.dumps(alts)}")
+        rows[label] = dict(ms=ms, event_ms=events, bound_ms=b, plain_ms=plain,
+                           library_ms=lib, plan=plan._asdict(), other_plans=alts,
+                           clipped=clipped_share(grid, shape[2:]))
         if label == "decode":
             records["K1bv"] = dict(
                 name="fused_sample_bwd_vol", route="cuda",
@@ -527,7 +593,7 @@ def phase_train_kernels(fused_sample, seed):
         del gout, out, ref
     del grids, grid
     torch.cuda.empty_cache()
-    return records
+    return records, rows
 
 
 def phase_k3_shape(fused_sample, seed):
@@ -576,7 +642,14 @@ def phase_k3_shape(fused_sample, seed):
         f"{bool(torch.equal(bwd_grid, again))}; with {alt} {alt_ms:.4f} ms")
     if not torch.equal(bwd_grid, again):
         fail("K1-bwd-grid at K3's shape is not bit-reproducible")
-    del vol, grid, gout, bwd_grid, again
+    bwd_vol, again = bwd_vol_twice(fused_sample, grid, gout, vol.shape, pad)
+    plan = fused_sample.bwd_vol_plan(vol.shape, grid.shape[0], grid[0, ..., 0].numel())
+    say(f"  K1-bwd-vol at K3's shape, tiled kernel {plan}: run twice, same bits: "
+        f"{bool(torch.equal(bwd_vol, again))}; other plans (channels a block, slices, "
+        f"blocks): ms {json.dumps(bwd_vol_alternatives(fused_sample, grid, gout, vol.shape, pad))}")
+    if not torch.equal(bwd_vol, again):
+        fail("K1-bwd-vol at K3's shape is not bit-reproducible")
+    del vol, grid, gout, bwd_grid, bwd_vol, again
 
     vol32 = torch.randn(1, 8, 48, 48, 48, generator=g, device=dev)
     grid = torch.rand(2, 32, 32, 32, 3, generator=g, device=dev) * 2.4 - 1.2
@@ -608,6 +681,14 @@ def phase_k3_shape(fused_sample, seed):
             fail(f"K1-bwd-grid per-sample {padding} disagrees with plain")
         if not same:
             fail(f"K1-bwd-grid per-sample {padding} is not bit-reproducible")
+        # The atomic d/dvol kernel: its bits change from run to run.
+        res, _ = bwd_vol_twice(fused_sample, grid, gout, vol32.shape, padding, "atomic")
+        err = rel_err(res, fused_sample.grid_sample_3d_bwd_vol_plain(
+            grid, gout, vol32.shape, padding))
+        say(f"  K1-bwd-vol vol (1, 8, 48^3), grid (2, 32^3) {padding} float32, atomic "
+            f"kernel: rel err {err:.3g} (tol {FP32_TOL:.3g})")
+        if not err <= FP32_TOL:
+            fail(f"K1-bwd-vol atomic {padding} disagrees with plain")
     del vol32, vol, grid, gout, res, again, ref
     torch.cuda.empty_cache()
     return out
@@ -1080,7 +1161,8 @@ def gradient_check(label, grads_fn, network, kernels) -> None:
         f"{NET_TOL}); end to end {grad_err:.3g}, noise "
         f"floor (plain, convolutions perturbed by {FLOOR_EPS}) {json.dumps(floors)}, "
         f"tol {FLOOR_FACTOR:g} x largest = {grad_tol:.3g}; kernels repeated "
-        f"{worst_rel(grads_k2, grads_k):.3g}")
+        f"{worst_rel(grads_k2, grads_k):.3g}, same bits "
+        f"{all(torch.equal(grads_k2[n], grads_k[n]) for n in grads_k)} (not gated)")
     if not max(loss_err, shared_err) <= NET_TOL:
         fail(f"{label}: the kernels disagree with the plain versions")
     if not grad_err <= grad_tol:
@@ -1225,9 +1307,32 @@ def phase_train(kernels, seed):
         fail("training: the held-out loss did not fall")
     say(f"  one training step (global batch {TRAIN_BATCH}), device time by kernel:")
     profile_step(lambda: step(frozen, pool[0], rotations=upright))
+    bwd_vol_in_step(kernels[0], lambda: step(frozen, pool[0], rotations=upright))
     del pool, holdout, mods, adam, frozen
     torch.cuda.empty_cache()
     return counts
+
+
+def bwd_vol_in_step(fused_sample, run_step, steps: int = 4) -> None:
+    """ms per training step (CUDA events) with K1-bwd-vol's tiled kernel
+    and with the atomic kernel it replaced, taken in turns (tiled, atomic,
+    atomic, tiled), ``steps`` steps a turn after a warm-up step."""
+    times = {"tiled": [], "atomic": []}
+    for kernel in ("tiled", "atomic", "atomic", "tiled"):
+        with mock.patch.object(fused_sample, "bwd_vol_kernel", lambda _, k=kernel: k):
+            run_step()
+            for _ in range(steps):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                run_step()
+                end.record()
+                torch.cuda.synchronize()
+                times[kernel].append(start.elapsed_time(end))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    say(f"  training step with K1-bwd-vol's tiled kernel {mean['tiled']:.1f} ms, with the "
+        f"atomic kernel it replaced {mean['atomic']:.1f} ms (difference "
+        f"{mean['atomic'] - mean['tiled']:.1f} ms; turns tiled, atomic, atomic, tiled, "
+        f"{steps} steps each, CUDA events: {json.dumps({k: [round(t, 1) for t in v] for k, v in times.items()})})")
 
 
 def main() -> None:
@@ -1261,12 +1366,14 @@ def main() -> None:
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
-    records.update(phase_train_kernels(fused_sample, args.seed))
+    train_records, bwd_vol_rows = phase_train_kernels(fused_sample, args.seed)
+    records.update(train_records)
     k3 = phase_k3_shape(fused_sample, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
     say(f"   K1 at K3's shape: {json.dumps(k3)}")
+    say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
 
     say(f"== phase 3/7: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)

@@ -100,7 +100,7 @@
 // samples (the refinement shape: one volume, 32768 samples) still fill the
 // 132 SMs; one wave of blocks measured faster than two or four (PERF.md).
 // Each group writes its (N, K, 3) sums to a buffer of partials, and
-// fused_sample_bwd_grid_reduce_kernel adds the groups in a fixed order: no
+// sum_partials_kernel adds the groups in a fixed order: no
 // atomics, two runs give the same bits. The plan (tile, channels a group,
 // groups) is computed in Python (ops/fused_sample.py:bwd_grid_plan), which
 // allocates the partials; one group writes dgrid directly.
@@ -130,15 +130,60 @@
 // decode shape (NV=4, N=96, C=256, 16^3 samples) g is 403 MB, about
 // 0.12 ms at 3.35 TB/s; dvol (17 MB) stays in L2.
 //
-// Design: the forward's thread layout, reversed. One thread per sample
-// rebuilds its 8 corner offsets and weights, then walks a chunk of
-// channels: it reads g coalesced across the warp and adds weight * g to the
-// 8 corners with fp32 atomicAdd (compiled to fire-and-forget reductions in
-// L2). The C entry point zeroes dvol first. Atomics make the order of each
-// voxel's sum change from run to run, so the result is not bit-reproducible:
-// it agrees with an ordered sum to fp32 rounding of about a hundred terms,
-// within 1e-5 of the largest value (the tolerance its tests state).
-// Corners of weight 0 (outside the volume) are skipped.
+// The TPU kernel builds dense (K, D*H) tap tiles and takes tap^T @ g on the
+// MXU, summing over K tiles in grid order; on the H100 that would be about
+// 825 GFLOP of fp32 work at the decode shape for 8 nonzero taps a row. Here
+// the natural form is the 8-corner scatter; the question is how to sum each
+// voxel in a fixed order without atomics. Two kernels:
+//
+// Tiled (fused_sample_bwd_vol_tiled_kernel), for every volume whose channel
+// fits in shared memory (up to 38^3; every zoo latent and K3's 32^3). A
+// block of 8 warps owns one volume, a group of up to 8 channels and a slice
+// of the volume's samples in (n, k) order, and keeps the group's channels
+// of dvol in shared memory as fp32, zeroed at the start. Warp p owns the
+// voxels of parity class p = (z & 1, y & 1, x & 1): a sample's 8 corners
+// lie in the 8 classes, one each, so every warp takes exactly one corner of
+// every sample and no two warps ever write the same word. Each class is
+// stored as its own (D/2, H/2, W/2) sub-volume with odd row and plane
+// pitches, so the distinct words a warp writes spread over the banks.
+//
+// The samples go by in stages of 256, one a thread: a thread loads its
+// sample's coordinates and g in the block's channels a stage ahead into
+// registers, then stores the g values and its sample's 8 (slot, weight)
+// pairs, one per class, into double-buffered shared memory (for volumes
+// over 34^3 there is no room for them beside the tile, and each warp
+// computes its own class's tap from staged coordinates instead). One
+// __syncthreads a stage. Warp p then takes the stage in 8 batches of 32
+// samples, batch q the samples 8 l + q, so that neighbouring samples, which
+// often share a corner, fall in different batches. The lanes of a batch
+// whose corner in class p has a nonzero weight and lands on one word form a
+// group; each group's values w * g are summed by a fixed shuffle tree over
+// the members' ranks (none where every word differs, up to five levels
+// where border clipping piles 32 samples on one voxel), and the group's
+// lowest lane adds the sum to its word with a plain shared read-modify-
+// write, for all the block's channels at once; __syncwarp orders one batch
+// after the previous. Finding groups with __match_any_sync costs about as
+// much as the rest of a batch where the 32 words differ (K3's random grid),
+// so a batch first checks through a byte-a-word owner table whether any two
+// of its lanes share a word. The warp's latencies, not shared-memory
+// bandwidth, set the pace (8 warps an SM at these tiles), so a warp does
+// each pass over all 8 batches before the next: slots and groups, then
+// values and trees, then the read-modify-writes. So each word's sum has a
+// fixed order (stage, batch, tree), and two calls on the same inputs give
+// the same bits. The plan (channels a block, sample slices, the class
+// pitches) is computed in Python (ops/fused_sample.py:bwd_vol_plan) so that
+// a call fills at least one wave of the 132 SMs; with one slice a block
+// writes its tile straight into dvol, else into a buffer of partials that
+// sum_partials_kernel adds in slice order.
+//
+// Atomic (fused_sample_bwd_vol_atomic_kernel), for larger volumes: one
+// thread per sample rebuilds its 8 corner offsets and weights, then walks a
+// chunk of channels, reading g coalesced across the warp and adding weight
+// * g to the 8 corners with fp32 atomicAdd; the C entry point zeroes dvol
+// first. Atomics make the order of each voxel's sum change from run to run,
+// so this kernel's result is NOT bit-reproducible: it agrees with an ordered
+// sum to fp32 rounding, within 1e-5 of the largest value. Corners of weight
+// 0 are skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,11 +207,13 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 
 // One axis: pixel coordinate -> two taps (index, weight, derivative of
 // the weight with respect to the [-1, 1] coordinate). Taps outside
-// [0, size) get weight 0, derivative 0 and index 0.
+// [0, size) get weight 0, derivative 0 and index 0. *base, if given, is the
+// floor tap's unclamped index (clipped to [-1, size]).
 __device__ __forceinline__ void axis_taps(float coord, int size, bool border,
                                           int* i0, int* i1, float* f0,
                                           float* f1, float* d0 = nullptr,
-                                          float* d1 = nullptr) {
+                                          float* d1 = nullptr,
+                                          int* base = nullptr) {
   float x = ((coord + 1.f) * size - 1.f) * 0.5f;
   float scale = 0.5f * (float)size;
   if (border) {
@@ -187,6 +234,7 @@ __device__ __forceinline__ void axis_taps(float coord, int size, bool border,
     *d0 = ok0 ? -scale : 0.f;
     *d1 = ok1 ? scale : 0.f;
   }
+  if (base != nullptr) *base = xi;
 }
 
 template <typename VolT, typename OutT>
@@ -636,17 +684,17 @@ fused_sample_bwd_grid_staged_kernel(
   }
 }
 
-// dgrid = the sum of the groups' partials, taken in group order.
+// out = the sum of the groups' partials (groups x m floats), taken in
+// group order: d/dgrid's channel groups, d/dvol's sample slices.
 __global__ void __launch_bounds__(kReduceThreads)
-fused_sample_bwd_grid_reduce_kernel(const float* __restrict__ partials,
-                                    float* __restrict__ dgrid, int64_t m,
-                                    int groups) {
+sum_partials_kernel(const float* __restrict__ partials,
+                    float* __restrict__ out, int64_t m, int groups) {
   const int64_t i = (int64_t)blockIdx.x * kReduceThreads + threadIdx.x;
   if (i >= m) return;
   float acc = partials[i];
 #pragma unroll 4
   for (int gi = 1; gi < groups; ++gi) acc += partials[gi * m + i];
-  dgrid[i] = acc;
+  out[i] = acc;
 }
 
 template <typename VolT, typename GT, typename VT, int PLANES>
@@ -679,10 +727,9 @@ int launch_bwd_grid_staged(const void* vol, const void* grid, const void* g,
   err = cudaGetLastError();
   if (err != cudaSuccess || groups == 1) return (int)err;
   const int64_t m = n * k * 3;
-  fused_sample_bwd_grid_reduce_kernel<<<(unsigned)ceil_div(m, kReduceThreads),
-                                        kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dgrid), m,
-      groups);
+  sum_partials_kernel<<<(unsigned)ceil_div(m, kReduceThreads), kReduceThreads,
+                        0, stream>>>(static_cast<const float*>(partials),
+                                     static_cast<float*>(dgrid), m, groups);
   return (int)cudaGetLastError();
 }
 
@@ -785,13 +832,14 @@ int launch_bwd_grid_per_sample(const void* vol, const void* grid,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- d/dvol, atomic
 template <typename GT>
 __global__ void __launch_bounds__(kThreads)
-fused_sample_bwd_vol_kernel(const float* __restrict__ grid,
-                            const GT* __restrict__ g,
-                            float* __restrict__ dvol, int64_t group,
-                            int64_t c, int d, int h, int w, int64_t k,
-                            bool border) {
+fused_sample_bwd_vol_atomic_kernel(const float* __restrict__ grid,
+                                   const GT* __restrict__ g,
+                                   float* __restrict__ dvol, int64_t group,
+                                   int64_t c, int d, int h, int w, int64_t k,
+                                   bool border) {
   const int64_t kk = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (kk >= k) return;
   const int64_t n = blockIdx.y;
@@ -827,14 +875,374 @@ fused_sample_bwd_vol_kernel(const float* __restrict__ grid,
 }
 
 template <typename GT>
-void launch_bwd_vol(const void* grid, const void* g, void* dvol, int64_t nv,
-                    int64_t n, int64_t c, int d, int h, int w, int64_t k,
-                    bool border, cudaStream_t stream) {
+void launch_bwd_vol_atomic(const void* grid, const void* g, void* dvol,
+                           int64_t nv, int64_t n, int64_t c, int d, int h,
+                           int w, int64_t k, bool border,
+                           cudaStream_t stream) {
   const dim3 blocks((unsigned)((k + kThreads - 1) / kThreads), (unsigned)n,
                     (unsigned)((c + kChannelsPerBlock - 1) / kChannelsPerBlock));
-  fused_sample_bwd_vol_kernel<GT><<<blocks, kThreads, 0, stream>>>(
+  fused_sample_bwd_vol_atomic_kernel<GT><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(grid), static_cast<const GT*>(g),
       static_cast<float*>(dvol), n / nv, c, d, h, w, k, border);
+}
+
+// -------------------------------------------------------- d/dvol, tiled
+constexpr int kVolThreads = 256;       // 8 warps, warp p owns parity class p
+constexpr int kVolStage = kVolThreads;  // samples a stage holds, one a thread
+constexpr unsigned kFull = 0xffffffffu;
+
+// One axis's two taps sorted by the parity of their index: i[b], f[b] is
+// the tap whose index has parity b (index 0 and weight 0 outside the
+// volume), with the forward's arithmetic.
+__device__ __forceinline__ void axis_taps_by_parity(float coord, int size,
+                                                    bool border, int i[2],
+                                                    float f[2]) {
+  int a0, a1, xi;
+  float w0, w1;
+  axis_taps(coord, size, border, &a0, &a1, &w0, &w1, nullptr, nullptr, &xi);
+  const bool odd = xi & 1;  // the floor tap's parity; -1 counts as odd
+  i[0] = odd ? a1 : a0;
+  f[0] = odd ? w1 : w0;
+  i[1] = odd ? a0 : a1;
+  f[1] = odd ? w0 : w1;
+}
+
+// Word of voxel (z, y, x) of parity class p in a channel's tile: class p's
+// (D/2, H/2, W/2) sub-volume starts at p * cls, with row pitch py and plane
+// pitch pz.
+__device__ __forceinline__ int class_slot(int p, int x, int y, int z, int py,
+                                          int pz, int cls) {
+  return p * cls + (z >> 1) * pz + (y >> 1) * py + (x >> 1);
+}
+
+// Shared-memory words of a block: the tile of cb channels, two stages of g,
+// and two stages of the 8 classes' (slot, weight) pairs with the owner
+// table, a byte a word of a channel's tile (shared_taps), or two stages of
+// the coordinates.
+constexpr int64_t bwd_vol_smem_words(int64_t cb, int64_t cls,
+                                     bool shared_taps) {
+  return cb * 8 * cls + 2 * cb * kVolStage +
+         (shared_taps ? 2 * 2 * 8 * kVolStage + (8 * cls + 3) / 4
+                      : 2 * 3 * kVolStage);
+}
+
+template <typename GT, int CB, bool kSharedTaps>
+__global__ void __launch_bounds__(kVolThreads)
+fused_sample_bwd_vol_tiled_kernel(const float* __restrict__ grid,
+                                  const GT* __restrict__ g,
+                                  float* __restrict__ out, int64_t nv,
+                                  int64_t group, int64_t c, int d, int h,
+                                  int w, int64_t k, int slices,
+                                  int64_t slice_len, int py, int pz, int cls,
+                                  bool border) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chs = 8 * cls;  // words of one channel's tile
+  float* tile = reinterpret_cast<float*>(smem);    // [CB][chs]
+  float* gbuf = tile + CB * chs;                   // [2][CB][kVolStage]
+  float* extra = gbuf + 2 * CB * kVolStage;
+  // kSharedTaps: slots [2][8][kVolStage] then weights [2][8][kVolStage];
+  // else coordinates [2][3][kVolStage].
+  int* tslot = reinterpret_cast<int*>(extra);
+  float* tweight = extra + 2 * 8 * kVolStage;
+  // kSharedTaps: then the owner table, one byte a word of a channel's tile.
+  unsigned char* owner =
+      reinterpret_cast<unsigned char*>(extra + 2 * 2 * 8 * kVolStage);
+
+  const int tid = threadIdx.x, lane = tid & 31, p = tid >> 5;
+  const int64_t vi = blockIdx.x / slices;
+  const int64_t sl = blockIdx.x - vi * slices;
+  const int64_t per_volume = group * k;
+  const int64_t s_begin = vi * per_volume + sl * slice_len;
+  const int64_t s_end = min(s_begin + slice_len, (vi + 1) * per_volume);
+  const int64_t c0 = (int64_t)blockIdx.y * CB;
+  const int cn = (int)min((int64_t)CB, c - c0);
+  const int64_t stages = (s_end - s_begin + kVolStage - 1) / kVolStage;
+
+  for (int i = tid; i < CB * chs; i += kVolThreads) tile[i] = 0.f;
+
+  // This thread's sample of a coming stage, s = (ni, kk): its coordinates
+  // and g in the block's channels, loaded into one of two sets of registers
+  // (the other set's stores into shared memory may still be queued).
+  int64_t s = s_begin + tid;
+  int64_t ni = s / k, kk = s - ni * k;
+  struct Ahead {
+    float3 pc;
+    float pg[CB];
+    bool valid;
+  };
+  auto load = [&](Ahead& a) {
+    a.valid = s < s_end;
+    a.pc = a.valid ? load_coords(grid + s * 3) : make_float3(0.f, 0.f, 0.f);
+    const GT* gp = g + (ni * c + c0) * k + kk;
+#pragma unroll
+    for (int e = 0; e < CB; ++e)
+      a.pg[e] = a.valid && e < cn ? load_f(gp + (int64_t)e * k) : 0.f;
+    s += kVolStage;
+    kk += kVolStage;
+    if (kk >= k) {
+      const int64_t q = kk / k;
+      ni += q;
+      kk -= q * k;
+    }
+  };
+  // Batch q of a stage takes its samples 8 l + q, l = 0 .. 31, so that
+  // neighbouring samples, which often share corners, fall in different
+  // batches; sample t of the stage is kept at position staged(t), which
+  // puts batch q's samples on 32 banks, as are a warp's 32 stores.
+  auto staged = [](int t) {
+    const int q = t & 7, l = t >> 3;
+    return q * 32 + ((l + 4 * q) & 31);
+  };
+  const int me = staged(tid);
+  auto put = [&](int buf, const Ahead& a) {
+    float* gb = gbuf + buf * CB * kVolStage;
+#pragma unroll
+    for (int e = 0; e < CB; ++e) gb[e * kVolStage + me] = a.pg[e];
+    if constexpr (kSharedTaps) {
+      int ix[2], iy[2], iz[2];
+      float fx[2], fy[2], fz[2];
+      axis_taps_by_parity(a.pc.x, w, border, ix, fx);
+      axis_taps_by_parity(a.pc.y, h, border, iy, fy);
+      axis_taps_by_parity(a.pc.z, d, border, iz, fz);
+      int* ts = tslot + buf * 8 * kVolStage;
+      float* tw = tweight + buf * 8 * kVolStage;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int bz = q >> 2, by = (q >> 1) & 1, bx = q & 1;
+        ts[q * kVolStage + me] =
+            class_slot(q, ix[bx], iy[by], iz[bz], py, pz, cls);
+        tw[q * kVolStage + me] = a.valid ? fz[bz] * fy[by] * fx[bx] : 0.f;
+      }
+    } else {
+      float* co = extra + buf * 3 * kVolStage;
+      co[me] = a.pc.x;
+      co[kVolStage + me] = a.pc.y;
+      co[2 * kVolStage + me] = a.pc.z;
+    }
+  };
+
+  // Warp p adds the stage's corners of class p, in 8 batches of 32 samples,
+  // in three passes so that the batches' latencies overlap: every batch's
+  // slots, weights and groups; every batch's values, summed within each
+  // group by a shuffle tree; then the groups' read-modify-writes, batch
+  // after batch.
+  auto consume = [&](int buf, int64_t stage_begin) {
+    constexpr int kBatches = kVolStage / 32;
+    const float* gb = gbuf + buf * CB * kVolStage;
+    const unsigned below = (1u << lane) - 1u;
+    int slot[kBatches];
+    float wt[kBatches];
+#pragma unroll
+    for (int q = 0; q < kBatches; ++q) {
+      const int idx = q * 32 + ((lane + 4 * q) & 31);
+      if constexpr (kSharedTaps) {
+        slot[q] = tslot[(buf * 8 + p) * kVolStage + idx];
+        wt[q] = tweight[(buf * 8 + p) * kVolStage + idx];
+      } else {
+        const float* co = extra + buf * 3 * kVolStage;
+        int ix[2], iy[2], iz[2];
+        float fx[2], fy[2], fz[2];
+        axis_taps_by_parity(co[idx], w, border, ix, fx);
+        axis_taps_by_parity(co[kVolStage + idx], h, border, iy, fy);
+        axis_taps_by_parity(co[2 * kVolStage + idx], d, border, iz, fz);
+        const bool bz = p >> 2, by = (p >> 1) & 1, bx = p & 1;
+        slot[q] = class_slot(p, bx ? ix[1] : ix[0], by ? iy[1] : iy[0],
+                             bz ? iz[1] : iz[0], py, pz, cls);
+        wt[q] = stage_begin + 8 * lane + q < s_end
+                    ? (bz ? fz[1] : fz[0]) * (by ? fy[1] : fy[0]) *
+                          (bx ? fx[1] : fx[0])
+                    : 0.f;
+      }
+    }
+    // Lanes on one word form a group (an inactive lane is alone), found
+    // with __match_any_sync on the slot, which costs about as much as the
+    // rest of a batch where the 32 slots differ. So with kSharedTaps a batch
+    // first checks whether it has duplicates at all: its active lanes write
+    // their lane into their word's byte of the owner table and read it
+    // back, a lane that reads another lane shares its word, and one warp
+    // reduction tells whether the batch has an active lane and whether two
+    // share a word. (Volumes whose tiles leave no room for the table match
+    // every batch.) rank is a lane's place among its group's members in
+    // lane order, rem the members above it, levels the tree levels the
+    // batch's largest group needs. live (warp-uniform) marks the batches
+    // with an active lane, lead the batches in which this lane writes its
+    // group's sum.
+    unsigned live = 0u, lead = 0u;
+    int rank[kBatches], size[kBatches], levels[kBatches];
+    unsigned rem[kBatches];
+#pragma unroll
+    for (int q = 0; q < kBatches; ++q) {
+      const bool active = wt[q] != 0.f;
+      bool shared_word = true;
+      if constexpr (kSharedTaps) {
+        if (active) owner[slot[q]] = (unsigned char)lane;
+        __syncwarp();
+        // A lane reads before it joins the reduction, and the next batch
+        // writes after it.
+        const unsigned flags = __reduce_or_sync(
+            kFull, (active ? 1u : 0u) |
+                       (active && owner[slot[q]] != (unsigned char)lane ? 2u : 0u));
+        if (flags & 1u) live |= 1u << q;
+        shared_word = (flags & 2u) != 0u;
+      } else if (__ballot_sync(kFull, active) != 0u) {
+        live |= 1u << q;
+      }
+      unsigned m = 1u << lane;
+      levels[q] = 0;
+      if (shared_word) {
+        m = __match_any_sync(kFull,
+                             active ? (unsigned)slot[q] : 0x80000000u | lane);
+        levels[q] =
+            32 - __clz((int)__reduce_max_sync(kFull, (unsigned)__popc(m)) - 1);
+      }
+      size[q] = __popc(m);
+      rank[q] = __popc(m & below);
+      rem[q] = m & ~below & ~(1u << lane);
+      if (active && rank[q] == 0) lead |= 1u << q;
+    }
+    if (live == 0u) return;
+    // Each group's sum by a tree: at level t the member of rank + 2^t
+    // passes its partial sum to the member of rank, where rank is a
+    // multiple of 2^(t+1).
+    float v[kBatches][CB];
+#pragma unroll
+    for (int q = 0; q < kBatches; ++q)
+#pragma unroll
+      for (int e = 0; e < CB; ++e)
+        v[q][e] = wt[q] * gb[e * kVolStage + q * 32 + ((lane + 4 * q) & 31)];
+    int deepest = 0;
+#pragma unroll
+    for (int q = 0; q < kBatches; ++q) deepest = max(deepest, levels[q]);
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      if (t < deepest) {
+#pragma unroll
+        for (int q = 0; q < kBatches; ++q) {
+#pragma unroll
+          for (int i = 0; i < (t > 0 ? 1 << (t - 1) : 0); ++i)
+            rem[q] &= rem[q] - 1u;
+          const int src = rem[q] != 0u ? __ffs((int)rem[q]) - 1 : lane;
+          const bool recv =
+              (rank[q] & ((2 << t) - 1)) == 0 && rank[q] + (1 << t) < size[q];
+#pragma unroll
+          for (int e = 0; e < CB; ++e) {
+            const float o = __shfl_sync(kFull, v[q][e], src);
+            if (recv) v[q][e] += o;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatches; ++q) {
+      if ((live >> q) & 1u) {
+        if ((lead >> q) & 1u) {
+          // The channels' words are distinct: all reads, then all writes.
+          float* tp = tile + slot[q];
+          float old[CB];
+#pragma unroll
+          for (int e = 0; e < CB; ++e) old[e] = tp[e * chs];
+#pragma unroll
+          for (int e = 0; e < CB; ++e) tp[e * chs] = old[e] + v[q][e];
+        }
+        // The next batch's reads see this batch's writes.
+        __syncwarp();
+      }
+    }
+  };
+
+  // Stage st is in buffer st & 1 and, a stage earlier, in registers a
+  // (even st) or b (odd). At the top of each stage every warp is done with
+  // the previous one, whose buffer then takes the next stage.
+  Ahead a, b;
+  load(a);
+  put(0, a);
+  load(b);
+  for (int64_t st = 0; st < stages; st += 2) {
+    __syncthreads();
+    put(1, b);
+    load(a);
+    consume(0, s_begin + st * kVolStage);
+    if (st + 1 == stages) break;
+    __syncthreads();
+    put(0, a);
+    load(b);
+    consume(1, s_begin + (st + 1) * kVolStage);
+  }
+  __syncthreads();
+
+  // The tile, voxel by voxel in dvol's order, to dvol (one slice) or to
+  // this slice's partials (slices, NV, C, D * H * W).
+  const int j = d * h * w;
+  float* dst = out + ((sl * nv + vi) * c + c0) * j;
+  const int zy0 = tid / w;
+  int x = tid - zy0 * w, y = zy0 % h, z = zy0 / h;
+  const int step_zy = kVolThreads / w, step_x = kVolThreads % w;
+  const int step_y = step_zy % h, step_z = step_zy / h;
+  for (int o = tid; o < j; o += kVolThreads) {
+    const int slot = class_slot(((z & 1) << 2) | ((y & 1) << 1) | (x & 1), x,
+                                y, z, py, pz, cls);
+    for (int e = 0; e < cn; ++e) dst[(int64_t)e * j + o] = tile[e * chs + slot];
+    x += step_x;
+    y += step_y;
+    z += step_z;
+    if (x >= w) x -= w, ++y;
+    if (y >= h) y -= h, ++z;
+  }
+}
+
+template <typename GT, int CB, bool kSharedTaps>
+int launch_bwd_vol_tiled(const void* grid, const void* g, void* partials,
+                         void* dvol, int64_t nv, int64_t n, int64_t c, int d,
+                         int h, int w, int64_t k, int slices,
+                         int64_t slice_len, int py, int pz, int cls,
+                         bool border, cudaStream_t stream) {
+  const size_t smem = (size_t)bwd_vol_smem_words(CB, cls, kSharedTaps) * 4;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_sample_bwd_vol_tiled_kernel<GT, CB, kSharedTaps>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t groups = ceil_div(c, CB);
+  if (nv * slices > 0x7fffffff || groups > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 blocks((unsigned)(nv * slices), (unsigned)groups);
+  kernel<<<blocks, kVolThreads, smem, stream>>>(
+      static_cast<const float*>(grid), static_cast<const GT*>(g),
+      static_cast<float*>(slices == 1 ? dvol : partials), nv, n / nv, c, d, h,
+      w, k, slices, slice_len, py, pz, cls, border);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const int64_t m = nv * c * d * h * w;
+  sum_partials_kernel<<<(unsigned)ceil_div(m, kReduceThreads), kReduceThreads,
+                        0, stream>>>(static_cast<const float*>(partials),
+                                     static_cast<float*>(dvol), m, slices);
+  return (int)cudaGetLastError();
+}
+
+template <typename GT>
+int bwd_vol_tiled_by_channels(int channels, bool shared_taps,
+                              const void* grid, const void* g, void* partials,
+                              void* dvol, int64_t nv, int64_t n, int64_t c,
+                              int d, int h, int w, int64_t k, int slices,
+                              int64_t slice_len, int py, int pz, int cls,
+                              bool border, cudaStream_t stream) {
+#define LF_BWD_VOL_TILED(CB, TAPS)                                          \
+  return launch_bwd_vol_tiled<GT, CB, TAPS>(grid, g, partials, dvol, nv, n, \
+                                            c, d, h, w, k, slices,          \
+                                            slice_len, py, pz, cls, border, \
+                                            stream)
+  if (!shared_taps) {
+    if (channels == 1) LF_BWD_VOL_TILED(1, false);
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (channels) {
+    case 1: LF_BWD_VOL_TILED(1, true);
+    case 2: LF_BWD_VOL_TILED(2, true);
+    case 4: LF_BWD_VOL_TILED(4, true);
+    case 8: LF_BWD_VOL_TILED(8, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LF_BWD_VOL_TILED
 }
 
 struct Staged {
@@ -988,13 +1396,55 @@ int lf_fused_sample_bwd_grid_per_sample(const void* vol, const void* grid,
       vol_dtype, g_dtype, stream);
 }
 
-// dtype code of g: 0 = fp32, 1 = bf16. Zeroes dvol (NV * C * D * H * W
-// floats) on the stream, then scatters into it. Returns cudaGetLastError()
-// after launch.
-int lf_fused_sample_bwd_vol(const void* grid, const void* g, void* dvol,
-                            int64_t nv, int64_t n, int64_t c, int64_t d,
-                            int64_t h, int64_t w, int64_t k, int border,
-                            int g_dtype, void* stream) {
+// d/dvol entry points, one per kernel; the caller picks by volume size and
+// gives the tiled kernel its plan (ops/fused_sample.py:bwd_vol_plan):
+// channels a block (1, 2, 4 or 8), sample slices a volume and samples a
+// slice, the class tile's row and plane pitches and words a class, and
+// whether the taps are kept in shared memory (else 1 channel a block), with
+// a partials buffer of slices * NV * C * D * H * W floats (dvol itself where
+// there is one slice). dtype code of g: 0 = fp32, 1 = bf16. Each returns
+// the launches' CUDA error code.
+int lf_fused_sample_bwd_vol_tiled(const void* grid, const void* g,
+                                  void* partials, void* dvol, int64_t nv,
+                                  int64_t n, int64_t c, int64_t d, int64_t h,
+                                  int64_t w, int64_t k, int64_t channels,
+                                  int64_t slices, int64_t slice_len,
+                                  int64_t pitch_y, int64_t pitch_z,
+                                  int64_t class_words, int shared_taps,
+                                  int border, int g_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c == 0) return 0;
+  if (n == 0 || k == 0)
+    return (int)cudaMemsetAsync(dvol, 0, (size_t)(nv * c * d * h * w) * 4, s);
+  // The slices must cover each volume's samples, none of them empty, and
+  // the pitches must hold each class's (D/2, H/2, W/2) sub-volume.
+  const int64_t per_volume = n / nv * k;
+  if (slices < 1 || slice_len < 1 || slices * slice_len < per_volume ||
+      (slices - 1) * slice_len >= per_volume || pitch_y < (w + 1) / 2 ||
+      pitch_z < (h + 1) / 2 * pitch_y || class_words < (d + 1) / 2 * pitch_z)
+    return (int)cudaErrorInvalidValue;
+  const bool b = border != 0, taps = shared_taps != 0;
+  if (g_dtype == 0)
+    return bwd_vol_tiled_by_channels<float>(
+        (int)channels, taps, grid, g, partials, dvol, nv, n, c, (int)d,
+        (int)h, (int)w, k, (int)slices, slice_len, (int)pitch_y,
+        (int)pitch_z, (int)class_words, b, s);
+  if (g_dtype == 1)
+    return bwd_vol_tiled_by_channels<__nv_bfloat16>(
+        (int)channels, taps, grid, g, partials, dvol, nv, n, c, (int)d,
+        (int)h, (int)w, k, (int)slices, slice_len, (int)pitch_y,
+        (int)pitch_z, (int)class_words, b, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Zeroes dvol (NV * C * D * H * W floats) on the stream, then scatters into
+// it with atomics (not bit-reproducible; for volumes whose channel does not
+// fit in shared memory).
+int lf_fused_sample_bwd_vol_atomic(const void* grid, const void* g,
+                                   void* dvol, int64_t nv, int64_t n,
+                                   int64_t c, int64_t d, int64_t h, int64_t w,
+                                   int64_t k, int border, int g_dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)(nv * c * d * h * w) * sizeof(float);
   cudaError_t err = cudaMemsetAsync(dvol, 0, bytes, s);
@@ -1002,9 +1452,10 @@ int lf_fused_sample_bwd_vol(const void* grid, const void* g, void* dvol,
   if (n == 0 || c == 0 || k == 0) return 0;
   const bool b = border != 0;
   if (g_dtype == 0)
-    launch_bwd_vol<float>(grid, g, dvol, nv, n, c, d, h, w, k, b, s);
+    launch_bwd_vol_atomic<float>(grid, g, dvol, nv, n, c, d, h, w, k, b, s);
   else if (g_dtype == 1)
-    launch_bwd_vol<__nv_bfloat16>(grid, g, dvol, nv, n, c, d, h, w, k, b, s);
+    launch_bwd_vol_atomic<__nv_bfloat16>(grid, g, dvol, nv, n, c, d, h, w, k,
+                                         b, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -17,16 +17,21 @@ and whose backward is K1-bwd-grid and K1-bwd-vol.
 On a CUDA tensor each wrapper launches its kernel of ``csrc/fused_sample.cu``
 (see the note there) or raises; on a CPU tensor it runs its plain PyTorch
 version, the same function written out as an explicit 8-corner gather (or
-scatter). The forward and d/dgrid each have two kernels, chosen by the
-volume's size alone (``fwd_kernel``, ``bwd_grid_kernel``): a staged kernel,
-which copies chunks of channels into shared memory, wherever one channel
-fits there (every zoo family's latent), and for larger volumes a kernel
-that reads the corners from L2 (the forward's gather kernel, d/dgrid's
-per-sample kernel). d/dgrid's staged kernel splits the channels into
-groups and adds the groups' partial sums in a fixed order, by the plan of
-``bwd_grid_plan``. ``LAUNCHES`` (forward, staged), ``GATHER_LAUNCHES``,
-``BWD_GRID_LAUNCHES`` (d/dgrid, staged), ``BWD_GRID_PER_SAMPLE_LAUNCHES``
-and ``BWD_VOL_LAUNCHES`` count kernel launches.
+scatter). Each of the three has two kernels, chosen by the volume's size
+alone (``fwd_kernel``, ``bwd_grid_kernel``, ``bwd_vol_kernel``): for every
+volume whose channel fits in shared memory (every zoo family's latent), a
+kernel that keeps channels there (the forward's and d/dgrid's staged
+kernels copy the volume in; d/dvol's tiled kernel sums into a tile of it),
+and for larger volumes a kernel that reads or adds the corners in L2 (the
+forward's gather kernel, d/dgrid's per-sample kernel, d/dvol's atomic
+kernel, the one kernel whose bits change from run to run). d/dgrid's
+staged kernel splits the channels into groups and adds the groups' partial
+sums in a fixed order, by the plan of ``bwd_grid_plan``; d/dvol's tiled
+kernel splits each volume's samples into slices and adds the slices'
+partial sums in a fixed order, by the plan of ``bwd_vol_plan``.
+``LAUNCHES`` (forward, staged), ``GATHER_LAUNCHES``, ``BWD_GRID_LAUNCHES``
+(d/dgrid, staged), ``BWD_GRID_PER_SAMPLE_LAUNCHES``, ``BWD_VOL_LAUNCHES``
+(d/dvol, tiled) and ``BWD_VOL_ATOMIC_LAUNCHES`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ GATHER_LAUNCHES = 0
 BWD_GRID_LAUNCHES = 0
 BWD_GRID_PER_SAMPLE_LAUNCHES = 0
 BWD_VOL_LAUNCHES = 0
+BWD_VOL_ATOMIC_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PADDING = ("zeros", "border")
@@ -55,6 +61,12 @@ _SMEM_BYTES = 232448
 # file), so the plan fills one wave of the 132 SMs.
 _BWD_GRID_MAX_TILE = 4096
 _SMS = 132
+# d/dvol's tiled kernel: blocks of 256 threads walk their samples in stages
+# of 256; an SM holds 228 KB of shared memory for its blocks, 1 KB of it
+# reserved a block; a slice of samples is at least 16 stages long.
+_VOL_STAGE = 256
+_SM_SHARED_BYTES = 233472
+_VOL_MIN_SLICE = 4096
 
 
 def _padded_voxels(volume_shape) -> int:
@@ -112,6 +124,95 @@ def bwd_grid_plan(volume_shape, n: int, k: int) -> BwdGridPlan:
     group_channels = chunk * -(-chunks // groups)
     groups = max(1, -(-c // group_channels))
     return BwdGridPlan(tile, chunk, group_channels, groups, tiles * groups)
+
+
+def _class_pitches(volume_shape):
+    """d/dvol's tiled kernel stores a channel's voxels by parity class, each
+    class a (D/2, H/2, W/2) sub-volume (rounded up): its row pitch and plane
+    pitch in words, odd, with the plane pitch not a multiple of 32 words
+    away from the row pitch (so that rows, planes and their diagonals fall
+    on different banks), and the words a class takes."""
+    d, h, w = (int(s) for s in volume_shape[2:])
+    pitch_y = (w + 1) // 2 | 1
+    pitch_z = (h + 1) // 2 * pitch_y | 1
+    if (pitch_z - pitch_y) % 32 == 0:
+        pitch_z += 2
+    return pitch_y, pitch_z, (d + 1) // 2 * pitch_z
+
+
+def _bwd_vol_smem(channels: int, class_words: int, shared_taps: bool) -> int:
+    """Bytes of shared memory a tiled d/dvol block takes: the tile of
+    ``channels`` channels (8 classes each), two stages of g, and two stages
+    of the 8 classes' (slot, weight) pairs with the owner table (a byte a
+    word of a channel's tile, by which a batch of lanes checks whether two
+    share a word), or two stages of the coordinates."""
+    taps = (2 * 2 * 8 * _VOL_STAGE + (8 * class_words + 3) // 4 if shared_taps
+            else 2 * 3 * _VOL_STAGE)
+    return 4 * (channels * 8 * class_words + 2 * channels * _VOL_STAGE + taps)
+
+
+def bwd_vol_kernel(volume_shape) -> str:
+    """The d/dvol kernel that serves a volume of ``volume_shape``: "tiled"
+    (deterministic) where one channel's tile fits in shared memory (every
+    cube up to 38^3), else "atomic"."""
+    class_words = _class_pitches(volume_shape)[2]
+    return "tiled" if _bwd_vol_smem(1, class_words, False) <= _SMEM_BYTES else "atomic"
+
+
+class BwdVolPlan(NamedTuple):
+    """How d/dvol's tiled kernel splits a call: blocks of ``channels``
+    channels by ``slices`` slices of ``slice_len`` consecutive samples of
+    one volume's group, whose partial sums are added in slice order. The
+    8 classes' taps are computed once a sample and kept in shared memory
+    with the owner table (``shared_taps``) where they fit beside the tile,
+    else each warp computes its own class's. The class tile's pitches, its
+    shared memory in bytes, and the blocks of the call."""
+    channels: int
+    slices: int
+    slice_len: int
+    shared_taps: bool
+    pitch_y: int
+    pitch_z: int
+    class_words: int
+    smem: int
+    blocks: int
+
+    def sample_ranges(self, per_volume: int):
+        """Each slice's samples [start, stop) of a volume's group, in the
+        order the slices are added."""
+        return [(i * self.slice_len, min((i + 1) * self.slice_len, per_volume))
+                for i in range(self.slices)]
+
+
+def bwd_vol_plan(volume_shape, n: int, k: int) -> BwdVolPlan:
+    """The tiled d/dvol kernel's plan for a volume of ``volume_shape`` and a
+    grid of ``n`` batches of ``k`` samples: as many channels a block as fit
+    in shared memory (1, 2, 4 or 8, at most the next power of two of C),
+    so that the taps are computed as few times as they can be, and the
+    samples split into as many slices as fill one wave of blocks on the 132
+    SMs, each slice at least 4096 samples and a whole number of stages.
+    More slices write more partial sums."""
+    nv, c = int(volume_shape[0]), int(volume_shape[1])
+    if bwd_vol_kernel(volume_shape) != "tiled":
+        raise ValueError(f"volume {tuple(volume_shape)}: one channel does not "
+                         f"fit in shared memory")
+    pitch_y, pitch_z, class_words = _class_pitches(volume_shape)
+    fits = [cb for cb in (8, 4, 2, 1)
+            if cb < 2 * c and _bwd_vol_smem(cb, class_words, True) <= _SMEM_BYTES]
+    channels, shared_taps = (fits[0], True) if fits else (1, False)
+    smem = _bwd_vol_smem(channels, class_words, shared_taps)
+    per_sm = max(1, min(8, _SM_SHARED_BYTES // (smem + 1024)))
+    groups = -(-c // channels)
+    per_volume = n // nv * k
+    slices = 1
+    if nv * groups < _SMS * per_sm:
+        slices = max(1, min(-(-_SMS * per_sm // (nv * groups)),
+                            per_volume // _VOL_MIN_SLICE))
+    slice_len = max(1, -(-per_volume // slices))
+    slice_len = -(-slice_len // _VOL_STAGE) * _VOL_STAGE
+    slices = max(1, -(-per_volume // slice_len))
+    return BwdVolPlan(channels, slices, slice_len, shared_taps, pitch_y, pitch_z,
+                      class_words, smem, nv * slices * groups)
 
 
 def _check_shapes(volume_shape, grid, padding_mode):
@@ -361,7 +462,7 @@ def grid_sample_3d_bwd_vol(grid: torch.Tensor, g: torch.Tensor, volume_shape,
     """dL/dvolume of ``grid_sample_3d_fused(volume, grid)`` given dL/dout
     ``g`` (N, C, Do, Ho, Wo), for a volume of ``volume_shape`` (NV, C, D,
     H, W); returns fp32 of that shape."""
-    global BWD_VOL_LAUNCHES
+    global BWD_VOL_LAUNCHES, BWD_VOL_ATOMIC_LAUNCHES
     volume_shape = tuple(int(s) for s in volume_shape)
     if grid.device.type == "cpu":
         return grid_sample_3d_bwd_vol_plain(grid, g, volume_shape, padding_mode)
@@ -375,18 +476,31 @@ def grid_sample_3d_bwd_vol(grid: torch.Tensor, g: torch.Tensor, volume_shape,
     n = grid.shape[0]
     k = grid[0, ..., 0].numel()
     dvol = torch.empty(volume_shape, dtype=torch.float32, device=grid.device)
+    kernel = bwd_vol_kernel(volume_shape)
     lib = _build.load("fused_sample")
-    fn = lib.lf_fused_sample_bwd_vol
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 7
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn = getattr(lib, f"lf_fused_sample_bwd_vol_{kernel}")
+    if kernel == "tiled":
+        plan = bwd_vol_plan(volume_shape, n, k)
+        partials = dvol if plan.slices == 1 else torch.empty(
+            (plan.slices, *volume_shape), dtype=torch.float32, device=grid.device)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 13
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        args = [grid.data_ptr(), g.data_ptr(), partials.data_ptr(), dvol.data_ptr(),
+                nv, n, c, d, h, w, k, plan.channels, plan.slices, plan.slice_len,
+                plan.pitch_y, plan.pitch_z, plan.class_words, int(plan.shared_taps)]
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 7
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        args = [grid.data_ptr(), g.data_ptr(), dvol.data_ptr(), nv, n, c, d, h, w, k]
     fn.restype = ctypes.c_int
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(grid.data_ptr(), g.data_ptr(), dvol.data_ptr(), nv, n, c,
-                    d, h, w, k, int(padding_mode == "border"),
-                    _DTYPE_CODES[g.dtype], stream)
-    _build.check(lib, status, "fused_sample_bwd_vol")
-    BWD_VOL_LAUNCHES += 1
+        status = fn(*args, int(padding_mode == "border"), _DTYPE_CODES[g.dtype], stream)
+    _build.check(lib, status, f"fused_sample_bwd_vol_{kernel}")
+    if kernel == "tiled":
+        BWD_VOL_LAUNCHES += 1
+    else:
+        BWD_VOL_ATOMIC_LAUNCHES += 1
     return dvol
 
 

@@ -5,10 +5,11 @@ Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false and
 run on an NVIDIA GPU with ``python -m pytest tests/test_torch_cuda.py``.
 
 Tolerances: fp32 outputs 1e-5 (same arithmetic, other summation order; for
-K1-bwd-vol an order that its atomics change from run to run); bf16 outputs
-one bf16 rounding step, 2^-7 relative to the largest value. The kernels
-without atomics (K1-fwd, K1-bwd-grid, K2-fwd, K2-bwd) must also give the
-same bits when run again.
+K1-bwd-vol's atomic kernel, which serves volumes over 38^3, an order that
+its atomics change from run to run); bf16 outputs one bf16 rounding step,
+2^-7 relative to the largest value. Every kernel but that atomic one
+(K1-fwd, K1-bwd-grid, K1-bwd-vol's tiled kernel, K2-fwd, K2-bwd) must also
+give the same bits when run again.
 """
 import numpy as np
 import pytest
@@ -128,23 +129,42 @@ def test_k1_bwd_grid_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, d
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nv,n,c,k", [
-    (1, 8, 16, (16, 16, 16)), (3, 6, 24, (5, 7, 9)), (2, 2, 20, (4, 4, 4)),
-    (4, 96, 256, (16, 16, 16)),   # training decode: a latent per object, 24 views
-    (32, 32, 256, (16, 16, 16)),  # training encode: one camera volume per view
-], ids=["small_shared", "small_groups", "small_unshared", "train_decode", "train_encode"])
-def test_k1_bwd_vol_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, k):
+@pytest.mark.parametrize("nv,n,c,k,dhw,spread", [
+    (1, 8, 16, (16, 16, 16), (16, 16, 16), 2.4), (3, 6, 24, (5, 7, 9), (16, 16, 16), 2.4),
+    (2, 2, 20, (4, 4, 4), (16, 16, 16), 2.4),
+    (4, 96, 256, (16, 16, 16), (16, 16, 16), 2.4),   # training decode: 4 latents, 24 views each
+    (32, 32, 256, (16, 16, 16), (16, 16, 16), 2.4),  # training encode: a camera volume a view
+    (4, 96, 40, (16, 16, 16), (16, 16, 16), 8.0),    # hot spots: 98 % outside the cube
+    (3, 3, 8, (16, 16, 16), (16, 16, 16), 8.0),
+    (2, 6, 20, (6, 5, 4), (5, 7, 9), 2.4),           # a non-cubic volume, C not a power of 2
+    (4, 4, 64, (32, 32, 32), (32, 32, 32), 2.4),     # K3's shape: one channel a block
+    (1, 2, 3, (16, 16, 16), (34, 34, 34), 2.4),      # the largest with its taps in shared memory
+    (1, 2, 3, (16, 16, 16), (35, 35, 35), 2.4),      # each warp computes its own taps
+    (1, 2, 3, (16, 16, 16), (38, 38, 38), 2.4),
+    (1, 2, 3, (16, 16, 16), (39, 39, 39), 2.4),      # a channel over shared memory: atomic
+], ids=["small_shared", "small_groups", "small_unshared", "train_decode", "train_encode",
+        "hot_decode", "hot_unshared", "noncubic", "k3", "taps_34", "warp_taps_35",
+        "warp_taps_38", "atomic_39"])
+def test_k1_bwd_vol_kernel_matches_plain(cuda, padding_mode, dtype, nv, n, c, k, dhw, spread):
+    """Against the plain version through the kernel its volume routes to,
+    and, for the tiled kernel, the same bits when run again."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    grid = torch.rand(n, *k, 3, generator=g, device=cuda) * 2.4 - 1.2
+    grid = torch.rand(n, *k, 3, generator=g, device=cuda) * spread - spread / 2
     gout = torch.randn(n, c, *k, generator=g, device=cuda).to(dtype)
-    shape = (nv, c, 16, 16, 16)
-    before = fused_sample.BWD_VOL_LAUNCHES
+    shape = (nv, c, *dhw)
+    kernel = fused_sample.bwd_vol_kernel(shape)
+    assert (kernel == "atomic") == (dhw == (39, 39, 39))
+    counter = {"tiled": "BWD_VOL_LAUNCHES", "atomic": "BWD_VOL_ATOMIC_LAUNCHES"}[kernel]
+    before = getattr(fused_sample, counter)
     dvol = fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding_mode)
     torch.cuda.synchronize()
-    assert fused_sample.BWD_VOL_LAUNCHES == before + 1
+    assert getattr(fused_sample, counter) == before + 1
     assert dvol.dtype == torch.float32 and dvol.shape == shape
     ref = fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, shape, padding_mode)
     assert _err(dvol, ref) <= FP32_TOL
+    if kernel == "tiled":
+        assert torch.equal(fused_sample.grid_sample_3d_bwd_vol(grid, gout, shape, padding_mode),
+                           dvol)
 
 
 @pytest.mark.cuda

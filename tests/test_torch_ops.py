@@ -600,16 +600,21 @@ def test_k1_function_backward_on_cpu(rng):
 
 # ----------------------------------------------------- K1-bwd-vol plain
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
-@pytest.mark.parametrize("nv,n", [(1, 4), (2, 4), (3, 3)],
-                         ids=["shared_batch1", "shared_groups", "unshared"])
-def test_k1_bwd_vol_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, nv, n):
+@pytest.mark.parametrize("nv,n,spread", [(1, 4, 2.4), (2, 4, 2.4), (3, 3, 2.4), (2, 4, 4.0)],
+                         ids=["shared_batch1", "shared_groups", "unshared", "clamped"])
+def test_k1_bwd_vol_plain_matches_pallas_vjp_and_autograd(rng, padding_mode, nv, n, spread):
     """d/dvolume with the grid held fixed, C=128, 8^3 volumes, grids
     reaching outside [-1, 1]: the plain K1-bwd-vol against jax.vjp of the
     Pallas kernel (interpret mode), torch autograd of the plain forward, and
     autograd of F.grid_sample on the volume repeated to N, summed over each
     volume's group. Covers NV = 1 and 1 < NV < N (the shared-volume cases
-    of tests/test_fused_sample.py) and NV = N."""
-    vol, grid = _k1_inputs(rng, nv, n, c=128)
+    of tests/test_fused_sample.py) and NV = N; "clamped" puts most samples
+    outside the cube, where border padding piles them on the boundary
+    voxels (the hot spots of the kernel, whose yardstick on the card this
+    plain version is)."""
+    vol, grid = _k1_inputs(rng, nv, n, c=128, spread=spread)
+    if spread > 2.4:
+        assert (np.abs(grid) > 1.0).any(-1).mean() > 0.8
     g = rng.randn(n, 128, 8, 8, 8).astype(np.float32)
     out = fused_sample.grid_sample_3d_bwd_vol_plain(
         torch.from_numpy(grid), torch.from_numpy(g), vol.shape, padding_mode)
@@ -639,6 +644,115 @@ def test_k1_bwd_vol_wrapper_on_cpu_is_the_plain_version(rng):
         fused_sample.grid_sample_3d_bwd_vol(torch.from_numpy(grid), g[:, :8], vol.shape)
     with pytest.raises(ValueError, match="must divide"):
         fused_sample.grid_sample_3d_bwd_vol(torch.from_numpy(grid), g, (3, *vol.shape[1:]))
+
+
+# The tiled K1-bwd-vol kernel's launch plan: the flagship training step's
+# decode (4 latents, each read by 24 views) and encode (32 camera volumes),
+# K3's shape (4 unshared 64-channel 32^3 volumes), the demo family's 8^3
+# latent, and small calls whose C is not a power of two.
+VOL_PLAN_CASES = {"decode": ((4, 256, 16, 16, 16), 96, 4096),
+                  "encode": ((32, 256, 16, 16, 16), 32, 4096),
+                  "k3": ((4, 64, 32, 32, 32), 4, 32768),
+                  "demo": ((1, 128, 8, 8, 8), 16, 512),
+                  "c20_noncubic": ((2, 20, 5, 7, 9), 6, 120),
+                  "c3_38": ((1, 3, 38, 38, 38), 2, 512)}
+
+
+def _vol_class_slots(shape, plan):
+    """Every voxel's word in a channel's tile, as csrc/fused_sample.cu's
+    class_slot computes it from the plan's pitches."""
+    z, y, x = np.meshgrid(*(np.arange(s) for s in shape[2:]), indexing="ij")
+    p = (z & 1) << 2 | (y & 1) << 1 | (x & 1)
+    return (p * plan.class_words + (z >> 1) * plan.pitch_z + (y >> 1) * plan.pitch_y
+            + (x >> 1)).ravel()
+
+
+@pytest.mark.parametrize("case", list(VOL_PLAN_CASES))
+def test_k1_bwd_vol_plan_covers_every_sample_and_voxel_once(case):
+    """The slices cover each volume's samples once, in order, whole stages
+    of 256 but the last; the channels a block are a power of two up to 8
+    and below 2C; the parity classes' tiles hold every voxel in a word of
+    its own, within the tile; the shared memory fits a block."""
+    shape, n, k = VOL_PLAN_CASES[case]
+    plan = fused_sample.bwd_vol_plan(shape, n, k)
+    per_volume = n // shape[0] * k
+    ranges = plan.sample_ranges(per_volume)
+    assert len(ranges) == plan.slices and ranges[0][0] == 0 and ranges[-1][1] == per_volume
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(stop > start for start, stop in ranges)
+    assert plan.slice_len % 256 == 0
+    assert plan.slices == 1 or plan.slice_len >= 4096
+    assert plan.channels in (1, 2, 4, 8) and plan.channels < 2 * shape[1]
+    assert plan.blocks == shape[0] * plan.slices * -(-shape[1] // plan.channels)
+    slots = _vol_class_slots(shape, plan)
+    assert len(np.unique(slots)) == slots.size and slots.max() < 8 * plan.class_words
+    assert plan.pitch_y % 2 == 1 and plan.pitch_z % 2 == 1
+    assert plan.smem <= 232448
+
+
+@pytest.mark.parametrize("case,channels,slices,blocks", [
+    ("decode", 8, 2, 256), ("encode", 8, 1, 1024), ("k3", 1, 1, 256)])
+def test_k1_bwd_vol_plan_at_the_main_path_shapes(case, channels, slices, blocks):
+    """The training step's shapes and K3's keep their channels' tiles and
+    taps in shared memory and fill at least one wave of the H100's 132 SMs
+    (one block an SM at these tiles): 8 channels a block, the decode's 128 (volume, channel group) blocks split into two
+    slices of 49152 samples; K3's 131 KB channel one a block."""
+    shape, n, k = VOL_PLAN_CASES[case]
+    plan = fused_sample.bwd_vol_plan(shape, n, k)
+    assert (plan.channels, plan.slices, plan.blocks) == (channels, slices, blocks)
+    assert plan.shared_taps and plan.blocks >= 132
+    assert plan.smem + 1024 > 233472 // 2
+
+
+@pytest.mark.parametrize("dhw,kernel,shared_taps", [
+    ((8, 8, 8), "tiled", True), ((16, 16, 16), "tiled", True), ((32, 32, 32), "tiled", True),
+    ((34, 34, 34), "tiled", True), ((35, 35, 35), "tiled", False),
+    ((38, 38, 38), "tiled", False), ((39, 39, 39), "atomic", None),
+    ((48, 48, 48), "atomic", None), ((8, 64, 100), "tiled", False),
+    ((8, 64, 113), "atomic", None), ((1, 1, 58112), "atomic", None)])
+def test_k1_bwd_vol_kernel_by_volume_size(dhw, kernel, shared_taps):
+    """The tiled kernel serves every cube up to 38^3, as the staged
+    forward and d/dgrid do, keeping the 8 classes' taps in shared memory up
+    to 34^3; larger volumes take the atomic kernel, which the plan refuses.
+    The class tiles' odd pitches pad some other shapes past the limit that
+    the forward's unpadded channel meets (8 x 64 x 113)."""
+    shape = (1, 2, *dhw)
+    assert fused_sample.bwd_vol_kernel(shape) == kernel
+    if kernel == "atomic":
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_sample.bwd_vol_plan(shape, 2, 512)
+    else:
+        plan = fused_sample.bwd_vol_plan(shape, 2, 512)
+        assert plan.shared_taps == shared_taps and (shared_taps or plan.channels == 1)
+        assert plan.smem <= 232448
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("nv,n,c,k,spread", [(1, 2, 4, (16, 16, 16), 2.4),
+                                             (2, 6, 3, (16, 16, 16), 4.0)],
+                         ids=["two_slices", "three_slices_clamped"])
+def test_k1_bwd_vol_plan_slice_sums_match_pallas_vjp(rng, padding_mode, nv, n, c, k, spread):
+    """The tiled kernel's arithmetic order across slices: the plain
+    d/dvolume of each of the plan's sample slices (g zero outside it),
+    added in the plan's order, against jax.vjp of the Pallas kernel
+    (interpret mode)."""
+    vol, grid = _k1_inputs(rng, nv, n, c=c, k=k, spread=spread)
+    g = rng.randn(n, c, *k).astype(np.float32)
+    per_volume = n // nv * int(np.prod(k))
+    plan = fused_sample.bwd_vol_plan(vol.shape, n, int(np.prod(k)))
+    assert plan.slices > 1
+    flat = np.arange(per_volume)
+    out = None
+    for start, stop in plan.sample_ranges(per_volume):
+        inside = ((flat >= start) & (flat < stop)).reshape(n // nv, 1, *k)
+        g_slice = (g.reshape(nv, n // nv, c, *k) * inside).reshape(g.shape)
+        part = fused_sample.grid_sample_3d_bwd_vol_plain(
+            torch.from_numpy(grid), torch.from_numpy(g_slice.astype(np.float32)),
+            vol.shape, padding_mode)
+        out = part if out is None else out + part
+    _, vjp = jax.vjp(lambda v: j_fused(v, jnp.asarray(grid), padding_mode=padding_mode),
+                     jnp.asarray(vol))
+    close_rel(out, vjp(jnp.asarray(g))[0], OPS_TOL)
 
 
 # ------------------------------------------- K3's shapes served by K1
