@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--accuracy-seeds N [N ...]]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -26,7 +26,10 @@ line after it ends:
    K1-bwd-vol's atomic kernel) at vol (1, 8, 48^3); each K1-fwd timing
    names the kernel that served it, and the launch counters must show which
    K1-bwd-grid and K1-bwd-vol kernel ran (staged and tiled at 16^3 and
-   32^3).
+   32^3). Then K1's kernels at the shapes of the multi-object and latent
+   paths (two objects' CEM render and refinement step; a latent refinement
+   step's render, autoencode decode and Sculptor camera->object sampling),
+   each against its plain version, twice for the same bits, and timed.
 3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
    16 views of 480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -48,11 +51,21 @@ line after it ends:
    decoder's linear resizes, run twice, must give the same bits. One
    refinement step must agree with the plain versions (see
    gradient_check). One refinement step is profiled: device time by
-   kernel, and K2-fwd's and K2-bwd's totals beside phase 2's sums.
+   kernel, and K2-fwd's and K2-bwd's totals beside phase 2's sums. Then
+   the latent path on the same target: configs/cross_entropy_latent.toml
+   then configs/adam_latent.toml; the launch counters must show all five
+   kernels, two refinements from the same coarse cameras must end on the
+   same bits, one step's K1 calls must be shapes phase 2 held, and one
+   step must agree with the plain versions; ms per step, peak memory and
+   a profile of one step.
 6. pose accuracy, demo family with the learned weights: the latent of 16
    shaded views of the analytic ellipsoid, then CEM + refinement on 8
    seeded target poses; ADD-S within a tenth of the diameter on at least 7.
-   One refinement step must agree with the plain versions.
+   One refinement step must agree with the plain versions. The same for
+   the Metropolis estimator as the coarse stage (tools/metropolis_eval.py's
+   128 chains, 300 iterations), and for all 8 targets as one
+   ``estimate_batch`` of CEM and refinement. ``--accuracy-seeds`` runs
+   only these three rigs, ungated, at each seed given.
 7. training, flagship: the published recipe's generator step
    (train/step.py make_recon_train_step, no discriminator) with weights
    N(0, 1) from --seed, on batches of the analytic ellipsoid rendered on
@@ -66,10 +79,18 @@ line after it ends:
    step, peak memory and a profile of one step, a run on a pool of batches
    whose held-out loss must fall, and ms per step with K1-bwd-vol's tiled
    kernel and with the atomic kernel it replaced, in turns.
+8. the pose service (latentfusion_tpu_torch/serve.py) at flagship width,
+   weights from --seed: two rounds of ping, register o0 and o1 (views 0-14),
+   estimates of view 15 of o0, of that frame twice and of o0 and o1
+   together, a malformed line, an unknown command and a shutdown, through
+   ``serve_lines``. The responses must be the protocol's, the single
+   estimate the direct coarse + fine estimate with the same seed, and each
+   object's refinement step in the two-object batch its single-object
+   step. Seconds, launches and peak memory per request.
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has both). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -694,6 +715,124 @@ def phase_k3_shape(fused_sample, seed):
     return out
 
 
+def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
+    """One K1 kernel ("fwd", "bwd_grid" or "bwd_vol") at one shape, fp32:
+    against its plain version, run twice for the same bits through the
+    kernel its counter names (staged or tiled: every volume here is 16^3),
+    then kernel, plain and library device ms and the bound. Returns the
+    row."""
+    nv, n, c = vol.shape[0], grid.shape[0], vol.shape[1]
+    samples = grid[..., 0].numel()
+    pad = {"zeros": 0, "border": 1}[padding]
+    vol_n = vol.repeat_interleave(n // nv, dim=0) if op != "bwd_vol" else None
+    if op == "fwd":
+        counter, plan = "LAUNCHES", fused_sample.fwd_kernel(vol.shape)
+        run = lambda: fused_sample.grid_sample_3d_fused(vol, grid, padding)
+        plain = lambda: fused_sample.grid_sample_3d_plain(vol, grid, padding)
+        lib = lambda: torch.nn.functional.grid_sample(
+            vol_n, grid, mode="bilinear", padding_mode=padding, align_corners=False)
+        nbytes = (vol.numel() + grid.numel() + n * c * grid[0, ..., 0].numel()) * 4
+        flops = 16.0 * c * samples + 40.0 * samples
+    elif op == "bwd_grid":
+        counter = "BWD_GRID_LAUNCHES"
+        plan = fused_sample.bwd_grid_plan(vol.shape, n, grid[0, ..., 0].numel())
+        run = lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
+        plain = lambda: fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding)
+        lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gout, vol_n, grid, 0, pad, False, [False, True])
+        nbytes = (gout.numel() + vol.numel() + 2 * grid.numel()) * 4
+        flops = 2.0 * 27 * gout.numel() + 60.0 * samples
+    else:
+        counter = "BWD_VOL_LAUNCHES"
+        plan = fused_sample.bwd_vol_plan(vol.shape, n, grid[0, ..., 0].numel())
+        run = lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, vol.shape, padding)
+        plain = lambda: fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, vol.shape,
+                                                                  padding)
+        lib = lib_bwd_vol(vol.shape, grid, gout, padding)
+        nbytes = (gout.numel() + grid.numel() + vol.numel()) * 4
+        flops = 16.0 * gout.numel() + 40.0 * samples
+    before = getattr(fused_sample, counter)
+    out, again = run(), run()
+    served = getattr(fused_sample, counter) == before + 2
+    ref = plain()
+    torch.cuda.synchronize()
+    err, same = rel_err(out, ref), bool(torch.equal(out, again))
+    b, by = bound_ms(nbytes, flops)
+    row = dict(op=op, path=label, vol=list(vol.shape), grids=n, padding=padding,
+               kernel=str(plan), max_abs_err=float((out - ref).abs().max()), rel_err=err,
+               same_bits=same, ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
+               library_ms=time_ms(lib), bound_ms=b, bound_by=by)
+    say(f"  K1-{op} {label}: vol {tuple(vol.shape)}, {n} grids of 16^3, {padding} float32, "
+        f"{plan}: rel err {err:.3g} (tol {FP32_TOL:.3g}); run twice, same bits: {same}; "
+        f"{row['ms']:.4f} ms, bound {b:.4f} ms ({by}), plain {row['plain_ms']:.3f} ms, "
+        f"library {row['library_ms']:.4f} ms (device time)")
+    if not served:
+        fail(f"K1-{op} {label} did not go through its shared-memory kernel")
+    if not err <= FP32_TOL:
+        fail(f"K1-{op} {label} disagrees with plain")
+    if not same:
+        fail(f"K1-{op} {label} is not bit-reproducible")
+    return row
+
+
+def phase_new_shapes(fused_sample, seed):
+    """K1's three kernels at the shapes of the multi-object and latent paths
+    (flagship, 256 channels): two objects' CEM render (2 x 128 hypotheses)
+    and refinement step (2 x 8); a latent refinement step of 16 hypotheses:
+    the render (one latent), the target's autoencode decode (16 latents, one
+    grid each) and the Sculptor's camera->object sampling (16 camera
+    volumes of 128 and 256 channels). Returns the rows and the set of
+    (op, volume shape, grids) held, which phase 5 checks a recorded latent
+    step against."""
+    from latentfusion_tpu_torch import transforms, zoo
+    from latentfusion_tpu_torch.camera import Camera
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    size = zoo.FLAGSHIP_INPUT_SIZE
+    cams = [hypothesis_cameras(load_views(FRAMES / f"refs_o{i}.npz", dev), size,
+                               CAMERA_DIST, g) for i in (0, 1)]
+    latent_cams = cams[0][:16]
+    grids = {"render2": transforms.object_to_camera_grid(Camera.cat(cams), 16),
+             "refine2": transforms.object_to_camera_grid(
+                 Camera.cat([c[:N_REFINE] for c in cams]), 16),
+             "latent": transforms.object_to_camera_grid(latent_cams, 16),
+             "sculptor": transforms.camera_to_object_grid(latent_cams, 16)}
+    del cams
+    cases = (("fwd", "two-object CEM render", 2, 256, "render2"),
+             ("fwd", "two-object refinement", 2, 256, "refine2"),
+             ("bwd_grid", "two-object refinement", 2, 256, "refine2"),
+             ("fwd", "latent render", 1, 256, "latent"),
+             ("bwd_grid", "latent render", 1, 256, "latent"),
+             ("fwd", "latent autoencode decode", 16, 256, "latent"),
+             ("bwd_grid", "latent autoencode decode", 16, 256, "latent"),
+             ("bwd_vol", "latent autoencode decode", 16, 256, "latent"),
+             ("fwd", "latent Sculptor camera->object", 16, 128, "sculptor"),
+             ("fwd", "latent Sculptor camera->object", 16, 256, "sculptor"),
+             ("bwd_grid", "latent Sculptor camera->object", 16, 256, "sculptor"))
+    rows = []
+    for op, label, nv, c, key in cases:
+        grid = grids[key]
+        vol = torch.randn(nv, c, 16, 16, 16, generator=g, device=dev)
+        gout = (None if op == "fwd" else
+                torch.randn(grid.shape[0], c, 16, 16, 16, generator=g, device=dev))
+        rows.append(k1_at(fused_sample, op, label, vol, grid, gout))
+        if (op, key) == ("bwd_grid", "refine2"):
+            alt, alt_ms = bwd_grid_two_waves(fused_sample, vol, grid, gout, "border")
+            rows[-1]["two_waves"] = [str(alt), alt_ms]
+            say(f"  K1-bwd_grid two-object refinement with twice its plan's groups "
+                f"{alt}: {alt_ms:.4f} ms")
+        if op == "bwd_vol":
+            rows[-1]["other_plans"] = bwd_vol_alternatives(fused_sample, grid, gout,
+                                                           vol.shape, "border")
+            say(f"  K1-bwd_vol {label}, other plans (channels a block, slices, blocks): "
+                f"ms {json.dumps(rows[-1]['other_plans'])}")
+        del vol, gout
+    del grids, grid
+    torch.cuda.empty_cache()
+    return rows, {(r["op"], tuple(r["vol"]), r["grids"]) for r in rows}
+
+
 def load_views(path: Path, device):
     """A committed reference object as an Observation (16 views)."""
     from latentfusion_tpu_torch.camera import Camera
@@ -1095,6 +1234,120 @@ def phase_pose_flagship(model, kernels, seed, k2_tables):
     return counts
 
 
+def record_k1(fused_sample, step_fn) -> dict:
+    """One call of ``step_fn`` with K1's calls counted by (op, volume
+    shape, grids): {key: calls}."""
+    calls = {}
+    wrapped = {"fwd": "grid_sample_3d_fused", "bwd_grid": "grid_sample_3d_bwd_grid",
+               "bwd_vol": "grid_sample_3d_bwd_vol"}
+
+    def spy(op, fn):
+        def run(*args):
+            vol_shape = tuple(args[0].shape) if op != "bwd_vol" else tuple(args[2])
+            grid = args[1] if op != "bwd_vol" else args[0]
+            key = (op, vol_shape, grid.shape[0])
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args)
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for op, name in wrapped.items():
+            stack.enter_context(mock.patch.object(
+                fused_sample, name, spy(op, getattr(fused_sample, name))))
+        step_fn()
+        torch.cuda.synchronize()
+    return calls
+
+
+def phase_latent_flagship(model, kernels, seed, held):
+    """The latent path for view 15 of refs_o0 from the latent of views
+    0-14: CEM scored by the latent term (configs/cross_entropy_latent.toml)
+    then refinement with it (configs/adam_latent.toml), each launch-counted
+    with its peak memory; the refinement again from the same coarse cameras
+    must end on the same bits; one step's K1 calls, recorded, must be
+    shapes phase 2 held (``held``); one step against the plain versions
+    (gradient_check) and its device-time profile. Returns the launch counts
+    of the CEM and of the refinement."""
+    from torch import nn
+
+    from latentfusion_tpu_torch.pose import estimation
+
+    obs = load_views(FRAMES / "refs_o0.npz", model.device)
+    target = views(obs, 15, 16)
+    z = model.build_latent_object(views(obs, 0, 15))
+    del obs
+    coarse = estimation.load_from_config(CONFIGS / "cross_entropy_latent.toml", model)
+    fine = estimation.load_from_config(CONFIGS / "adam_latent.toml", model,
+                                       track_stats=True)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    reset_counters(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cams = coarse.estimate(z, target, generator=g)
+    torch.cuda.synchronize()
+    cem_s, cem_counts = time.perf_counter() - t0, read_counters(kernels)
+    cem_peak = torch.cuda.max_memory_allocated() / 1e9
+    reset_counters(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    best, stats = fine.estimate(z, target, camera=cams[:fine.num_samples])
+    end.record()
+    torch.cuda.synchronize()
+    refine_ms, refine_counts = start.elapsed_time(end), read_counters(kernels)
+    refine_peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: cem_counts[k] + refine_counts[k] for k in cem_counts}
+    steps = stats["num_steps"]
+    history = stats["loss_history"][:steps]
+    say(f"  latent CEM {coarse.num_iters} iterations of {coarse.num_samples} in "
+        f"{cem_s:.3f} s, peak memory {cem_peak:.2f} GB, launches {json.dumps(cem_counts)}; "
+        f"latent refinement {steps} steps of {fine.num_samples} at "
+        f"{refine_ms / steps:.2f} ms per step (CUDA events over the refinement), peak "
+        f"memory {refine_peak:.2f} GB, launches {json.dumps(refine_counts)} (per step "
+        f"{json.dumps({k: v / steps for k, v in refine_counts.items()})}); loss "
+        f"{float(history[0]):.5f} -> {float(history.min()):.5f}")
+    if not all(counts[k] > 0 for k in ("K1", "K1b", "K1bv", "K2", "K2b")):
+        fail(f"latent: a kernel was not launched on the latent path: {counts}")
+    if not (bool(torch.isfinite(history).all()) and len(best) == fine.ranking_size
+            and bool(torch.isfinite(best.translation).all())):
+        fail("latent: the refinement's losses or poses are not finite")
+
+    again, stats2 = fine.estimate(z, target, camera=cams[:fine.num_samples])
+    torch.cuda.synchronize()
+    same_pose = (torch.equal(best.extrinsic, again.extrinsic)
+                 and torch.equal(best.viewport, again.viewport))
+    same_loss = torch.equal(history, stats2["loss_history"][:stats2["num_steps"]])
+    say(f"  latent refinement twice from the same coarse cameras: final poses the same "
+        f"bits {same_pose}, loss histories the same bits {same_loss} ({steps} and "
+        f"{stats2['num_steps']} steps)")
+    zcams = cams[:fine.num_samples].zoom(None, model.input_size, model.camera_dist)
+    step = lambda: fine.loss_and_grads(z, target, zcams)
+    networks = nn.ModuleList([model.sculptor, model.photographer])
+    if not (same_pose and same_loss):
+        say(f"  ops flagged by torch.use_deterministic_algorithms(True, warn_only=True) "
+            f"in one latent step: {json.dumps(nondeterministic_ops(step))}")
+        say(f"  modules whose backward parts the bits from the same incoming "
+            f"gradient: {json.dumps(parting_modules(step, networks))}")
+        fail("latent: two refinements from the same coarse cameras ended on other bits")
+
+    calls = record_k1(kernels[0], step)
+    say(f"  K1 calls in one latent refinement step (op, volume, grids: calls): "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}")
+    missing = [k for k in calls if k not in held]
+    if missing:
+        fail(f"latent: K1 ran at shapes phase 2 did not hold: {missing}")
+    k2_shapes, _ = record_step(step)
+    say(f"  K2 calls in one latent refinement step by shape (forward, backward): "
+        f"{json.dumps({str(k): v for k, v in k2_shapes.items()})}")
+    gradient_check("flagship latent refinement step", step, networks, kernels)
+    say("  one latent refinement step (16 hypotheses, forward and backward), device "
+        "time by kernel:")
+    profile_step(step)
+    del z, target, cams, best, again
+    torch.cuda.empty_cache()
+    return cem_counts, refine_counts
+
+
 def deterministic_cost(step) -> None:
     """Print one refinement step's time as the package runs it (cuDNN's
     deterministic algorithms) and with cuDNN's default selection patched in,
@@ -1169,11 +1422,18 @@ def gradient_check(label, grads_fn, network, kernels) -> None:
         fail(f"{label}: the gradient on the kernels is beyond its noise floor")
 
 
-def phase_pose_accuracy(model, kernels, seed):
+def phase_pose_accuracy(model, kernels, seed, checks=True):
     """The oracle rig of tools/train_encoder_distill.py: ADD-S of CEM +
-    refinement on 8 targets with the learned demo weights; the reference
-    views and targets are drawn from ``seed``."""
+    refinement on 8 targets with the learned demo weights; then of the
+    Metropolis estimator as the coarse stage at tools/metropolis_eval.py's
+    budget with the same refinement; then of all 8 targets as one
+    ``estimate_batch`` of CEM and refinement (the latent 8 times, as the
+    service batches frames of one object). The reference views and targets
+    are drawn from ``seed``. Each gated at 7 of 8. ``checks`` adds a
+    refinement step against the plain versions. Returns the launch counts
+    of the Metropolis estimates and of the batch, and the hits."""
     from latentfusion_tpu_torch import testing, zoo
+    from latentfusion_tpu_torch.camera import Camera
     from latentfusion_tpu_torch.pose import estimation, metrics
     from latentfusion_tpu_torch.three import orientation, quaternion
 
@@ -1185,6 +1445,7 @@ def phase_pose_accuracy(model, kernels, seed):
     gt_cams = [testing.make_camera(1, z=zoo.DEMO_CAMERA_DIST, f=615.0, width=640,
                                    height=480, quats=quaternion.random(1, g),
                                    device=dev) for _ in range(8)]
+    targets = [oracle.make_observation(gt) for gt in gt_cams]
     z = model.build_latent_object(oracle.make_observation(ref_cams, shaded=True))
     points = (orientation.evenly_distributed_points(512, device=dev)
               * torch.tensor(ORACLE_AXES, device=dev))
@@ -1192,32 +1453,241 @@ def phase_pose_accuracy(model, kernels, seed):
         model=model, num_gmm_components=6, sample_flipped=True, num_samples=128,
         num_iters=10, num_elites=48, learning_rate=0.75,
         loss_weights={"depth": 1.0}, ranking_size=16)
+    metropolis = estimation.MetropolisPoseEstimator(
+        model=model, num_samples=128, num_iters=300, loss_weights={"depth": 1.0},
+        ranking_size=16)
     fine = estimation.GradientPoseEstimator(
         model=model, ranking_size=8, loss_weights={"depth": 1.0, "ov_depth": 0.3},
         learning_rate=0.01, num_samples=16, num_iters=150, converge_threshold=1e-6,
         converge_patience=25, optimizer="adam", track_stats=True)
-    hits = 0
-    t0 = time.perf_counter()
-    for i, gt in enumerate(gt_cams):
-        target = oracle.make_observation(gt)
-        cams = coarse.estimate(z, target, generator=g)
-        best, stats = fine.estimate(z, target, camera=cams[:16])
-        if i == 0:
-            zcams = cams[:16].zoom(None, model.input_size, model.camera_dist)
-            gradient_check("demo refinement step",
-                           lambda: fine.loss_and_grads(z, target, zcams),
-                           model.photographer, kernels)
+
+    def score(label, i, gt, cams, best, stats):
         mc = metrics.camera_metrics(gt, cams[0], points, 1.0)
         mr = metrics.camera_metrics(gt, best[0], points, 1.0)
         ok = mr["add_s"] < 0.1 * ORACLE_DIAMETER
-        hits += ok
-        say(f"  target {i}: coarse add_s {mc['add_s']:.4f} rot {mc['rotation_dist']:.3f}; "
-            f"refined ({stats['num_steps']} steps) add_s {mr['add_s']:.4f} rot "
-            f"{mr['rotation_dist']:.3f} trans {mr['translation_dist']:.4f}; 0.1d {ok}")
-    say(f"  ADD-S within 0.1 diameter: {hits}/8 = {hits / 8:.3f} "
-        f"({time.perf_counter() - t0:.1f} s for 8 targets)")
-    if hits < 7:
-        fail(f"pose accuracy: {hits}/8 targets within 0.1 diameter, fewer than 7")
+        say(f"  {label} target {i}: coarse add_s {mc['add_s']:.4f} rot "
+            f"{mc['rotation_dist']:.3f}; refined ({stats['num_steps']} steps) add_s "
+            f"{mr['add_s']:.4f} rot {mr['rotation_dist']:.3f} trans "
+            f"{mr['translation_dist']:.4f}; 0.1d {ok}")
+        return ok
+
+    hits, single_s = {}, {}
+    counts = {}
+    for label, est in (("CEM", coarse), ("Metropolis", metropolis)):
+        hits[label], single_s[label] = 0, []
+        reset_counters(kernels)
+        for i, (gt, target) in enumerate(zip(gt_cams, targets)):
+            t0 = time.perf_counter()
+            cams = est.estimate(z, target, generator=g)
+            best, stats = fine.estimate(z, target, camera=cams[:16])
+            torch.cuda.synchronize()
+            single_s[label].append(time.perf_counter() - t0)
+            if i == 0 and label == "CEM" and checks:
+                zcams = cams[:16].zoom(None, model.input_size, model.camera_dist)
+                gradient_check("demo refinement step",
+                               lambda: fine.loss_and_grads(z, target, zcams),
+                               model.photographer, kernels)
+            hits[label] += score(label, i, gt, cams, best, stats)
+        counts[label] = read_counters(kernels)
+        say(f"  {label}: ADD-S within 0.1 diameter: {hits[label]}/8 = {hits[label] / 8:.3f} "
+            f"({sum(single_s[label]):.1f} s for 8 targets, s per target "
+            f"{json.dumps([round(x, 3) for x in single_s[label]])}); launches "
+            f"{json.dumps(counts[label])}")
+
+    reset_counters(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z8 = torch.cat([z] * len(targets))
+    coarse_out = coarse.estimate_batch(z8, targets, generator=g)
+    results, stats = fine.estimate_batch(z8, targets,
+                                         cameras=Camera.cat([c[:16] for c in coarse_out]))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    counts["batch"] = read_counters(kernels)
+    hits["batch"] = sum(score("batch", i, gt, cams, best, {"num_steps": stats["num_steps"]})
+                        for i, (gt, cams, best) in enumerate(zip(gt_cams, coarse_out, results)))
+    say(f"  estimate_batch of the 8 targets (CEM then refinement, {stats['num_steps']} "
+        f"steps): ADD-S within 0.1 diameter {hits['batch']}/8; {batch_s:.2f} s per batch "
+        f"against {sum(single_s['CEM']):.2f} s for the 8 single CEM estimates; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{json.dumps(counts['batch'])}")
+    if checks:
+        for label, n in hits.items():
+            if n < 7:
+                fail(f"pose accuracy ({label}): {n}/8 targets within 0.1 diameter, "
+                     f"fewer than 7")
+    del z, z8, targets
+    torch.cuda.empty_cache()
+    return counts, hits
+
+
+def batch_step_check(fine, z_objs, targets, cams) -> None:
+    """One refinement step of two objects from their coarse cameras
+    (zoomed, object-major), with the forward shared: each object's loss and
+    camera gradient from the batch's objective (the estimator's own step,
+    ``loss_and_grads(num_objects=2)``) against those of the object's
+    single-object objective (its hypotheses' losses against its own
+    target, summed and divided by their count) on the same render. Gated at
+    NET_TOL. Also prints, ungated, how far a separate single-object step
+    (its own forward at batch 8) lands from the batch's."""
+    from latentfusion_tpu_torch.observation import Observation
+    from latentfusion_tpu_torch.pose import estimation
+    from latentfusion_tpu_torch.pose import utils as pu
+
+    num_objects, views = len(targets), len(cams) // len(targets)
+    target = estimation.repeat_frames(Observation.collate(targets), views)
+    loss_e, grads_e = fine.loss_and_grads(z_objs, target, cams, num_objects=num_objects)
+    leaves = {k: v.detach().requires_grad_() for k, v in pu.camera_params(cams).items()}
+    with torch.enable_grad(), estimation.deterministic_cudnn():
+        cam = cams.replace(**leaves)
+        z_depth, z_mask_logits, _ = fine._render_zoomed(z_objs, cam)
+
+        def objective(rows, tgt):
+            loss_dict = fine.loss_func(tgt, z_depth[rows], z_mask_logits[rows], cam[rows])
+            return sum(estimation.weigh_losses(loss_dict, fine.loss_weights).values())
+
+        loss_b = objective(slice(None), target)
+        losses_b = loss_b.detach()
+        grads_b = torch.autograd.grad(loss_b.sum() / views, list(leaves.values()),
+                                      retain_graph=True)
+        errs, separate = [], []
+        for b, tgt in enumerate(targets):
+            rows = slice(b * views, (b + 1) * views)
+            loss_s = objective(rows, tgt)
+            grads_s = torch.autograd.grad(loss_s.sum() / views, list(leaves.values()),
+                                          retain_graph=True)
+            errs.append(max([rel_err(losses_b[rows], loss_s.detach())] + [
+                worst_rel({0: gb[rows]}, {0: gs[rows]}) for gb, gs in zip(grads_b, grads_s)]))
+            loss_1, grads_1 = fine.loss_and_grads(z_objs[b:b + 1], tgt, cams[rows])
+            separate.append(max([rel_err(loss_e[rows], loss_1)] + [
+                worst_rel({0: grads_e[k][rows]}, {0: grads_1[k]}) for k in grads_1]))
+    same = all(torch.equal(grads_e[k], g) for k, g in zip(leaves, grads_b))
+    estimator_err = max([rel_err(loss_e, losses_b)] + [worst_rel({0: grads_e[k]}, {0: g})
+                                                     for k, g in zip(leaves, grads_b)])
+    say(f"  two-object refinement step, forward shared: each object's loss and camera "
+        f"gradient from the batch against its single-object objective, rel err "
+        f"{json.dumps(errs)} (tol {NET_TOL}); the estimator's batch step against the "
+        f"batch objective {estimator_err:.3g} (same bits {same}); a separate "
+        f"single-object step (its own forward) against the batch's block, not gated: "
+        f"{json.dumps(separate)}")
+    if not max(errs + [estimator_err]) <= NET_TOL:
+        fail("service: an object's step in the batch is not its single-object step")
+
+
+def phase_service(model, kernels, seed):
+    """The service at flagship width: a PoseService (cross_entropy_quick
+    then adam_quick, top 8) driven through serve_lines, two rounds of
+    ping, register o0 and o1 (views 0-14 of refs_o0/o1), an estimate of
+    view 15 of o0, of that frame twice, of o0 and o1 together, a malformed
+    line, an unknown command and a shutdown. Gates: the responses; the
+    single estimate against the direct coarse + fine estimate with the same
+    seed; a two-object step against its objects' single-object steps.
+    Prints seconds, launches and peak memory per request. Returns the warm
+    round's launches summed over its requests."""
+    import io
+    import tempfile
+
+    from latentfusion_tpu_torch import serve
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.observation import Observation
+    from latentfusion_tpu_torch.pose import estimation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for obj in ("o0", "o1"):
+            with np.load(FRAMES / f"refs_{obj}.npz") as z:
+                arrays = {k: z[k] for k in ("color", "depth", "mask", "intrinsic",
+                                            "extrinsic")}
+            for part, rows in (("refs", slice(0, 15)), ("target", slice(15, 16))):
+                paths[part, obj] = str(Path(tmp) / f"{part}_{obj}.npz")
+                np.savez(paths[part, obj], **{
+                    k: (v if k == "intrinsic" and v.ndim == 2 else v[rows])
+                    for k, v in arrays.items()})
+        service = serve.PoseService(model, CONFIGS / "cross_entropy_quick.toml",
+                                    CONFIGS / "adam_quick.toml", top_k=N_REFINE)
+        requests = [
+            {"cmd": "ping", "id": "ping"},
+            {"cmd": "register", "object": "o0", "npz": paths["refs", "o0"], "id": "register o0"},
+            {"cmd": "register", "object": "o1", "npz": paths["refs", "o1"], "id": "register o1"},
+            {"cmd": "estimate", "object": "o0", "npz": paths["target", "o0"], "seed": seed,
+             "id": "estimate one frame"},
+            {"cmd": "estimate", "object": "o0", "npz": [paths["target", "o0"]] * 2,
+             "seed": seed, "id": "estimate two frames of o0"},
+            {"cmd": "estimate", "object": ["o0", "o1"],
+             "npz": [paths["target", "o0"], paths["target", "o1"]], "seed": seed,
+             "id": "estimate o0 and o1"},
+            "{malformed",
+            {"cmd": "teleport", "id": "unknown command"},
+            {"cmd": "shutdown", "id": "shutdown"}]
+        handle, per_request = service.handle, []
+
+        def counted(req):
+            reset_counters(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            resp = handle(req)
+            torch.cuda.synchronize()
+            per_request.append((req.get("id"), time.perf_counter() - t0,
+                                read_counters(kernels),
+                                torch.cuda.max_memory_allocated() / 1e9))
+            return resp
+
+        service.handle = counted
+        rounds = []
+        for label in ("first", "warm"):
+            per_request.clear()
+            out = io.StringIO()
+            stopped = serve.serve_lines(service, io.StringIO("\n".join(
+                r if isinstance(r, str) else json.dumps(r) for r in requests) + "\n"), out)
+            resp = [json.loads(line) for line in out.getvalue().splitlines()]
+            rounds.append(resp)
+            say(f"  {label} round: {len(resp)} responses, ok "
+                f"{[r['ok'] for r in resp]}, shutdown {stopped}")
+            for rid, secs, counts, peak in per_request:
+                say(f"    {rid}: {secs:.3f} s, peak memory {peak:.2f} GB, launches "
+                    f"{json.dumps(counts)}")
+            if not (stopped and [r["ok"] for r in resp] == [True] * 6 + [False] * 2 + [True]
+                    and resp[-1].get("shutdown")
+                    and [r.get("id") for r in resp[7:]] == ["unknown command", "shutdown"]
+                    and len(resp[4]["poses"]) == 2 and len(resp[5]["poses"]) == 2):
+                fail(f"service: the {label} round's responses are not the protocol's: "
+                     f"{[{k: v for k, v in r.items() if k != 'poses'} for r in resp]}")
+            warm_counts = {k: sum(c[k] for _, _, c, _ in per_request) for k in per_request[0][2]}
+        service.handle = handle
+
+        target = serve.observation_from_npz(paths["target", "o0"], model.device)
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        z0 = service.latents["o0"]
+        direct = service.estimate_one(z0, target, N_REFINE, g)
+        got = torch.tensor(rounds[1][3]["extrinsic"], device=model.device)
+        err = rel_err(got, direct.extrinsic[0])
+        same = bool(torch.equal(got, direct.extrinsic[0]))
+        say(f"  the single-frame response against the direct coarse + fine estimate with "
+            f"the same seed: extrinsic rel err {err:.3g} (tol {NET_TOL}), same bits {same}; "
+            f"first and warm rounds' poses the same "
+            f"{rounds[0][3]['extrinsic'] == rounds[1][3]['extrinsic']}")
+        if not err <= NET_TOL:
+            fail("service: the single-frame response is not the direct estimate")
+
+        targets = [target, serve.observation_from_npz(paths["target", "o1"], model.device)]
+        z_objs = torch.cat([z0, service.latents["o1"]])
+        t0 = time.perf_counter()
+        coarse_out = service.coarse.estimate_batch(
+            z_objs, targets, generator=torch.Generator(device=model.device).manual_seed(seed))
+        torch.cuda.synchronize()
+        coarse_s = time.perf_counter() - t0
+        cams = Camera.cat([c[:N_REFINE] for c in coarse_out]).zoom(
+            None, model.input_size, model.camera_dist)
+        batch_step_check(service.fine, z_objs, targets, cams)
+        rep = estimation.repeat_frames(Observation.collate(targets), N_REFINE)
+        step = lambda: service.fine.loss_and_grads(z_objs, rep, cams, num_objects=2)
+        say(f"  the two-object request's parts: CEM estimate_batch ({service.coarse.num_iters} "
+            f"iterations of 2 x {service.coarse.num_samples}) {coarse_s:.3f} s; one refinement "
+            f"step of 2 x {N_REFINE} {event_ms(step):.2f} ms by CUDA events, "
+            f"{time_ms(step, iters=3):.2f} ms of device time")
+    del service, direct, coarse_out
+    torch.cuda.empty_cache()
+    return warm_counts
 
 
 def train_grads(step, mods, batch, rotations):
@@ -1338,6 +1808,10 @@ def bwd_vol_in_step(fused_sample, run_step, steps: int = 4) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--accuracy-seeds", type=int, nargs="+", default=None,
+                        help="build the kernels, run phase 6's three accuracy rigs "
+                             "(CEM, Metropolis, estimate_batch) ungated at each seed, "
+                             "print the hits and exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is "
@@ -1358,24 +1832,40 @@ def main() -> None:
     objects = [(f"o{i}", FRAMES / f"refs_o{i}.npz") for i in (0, 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/7: device and kernel build")
+    say("== phase 1/8: device and kernel build")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
+    state = split_state_dict(from_jax_params(load_params_npz(
+        DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
+    demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
+                             zoo.demo_fuser(), state["fuser"],
+                             zoo.demo_photographer(), state["photographer"],
+                             camera_dist=zoo.DEMO_CAMERA_DIST)
+    if args.accuracy_seeds is not None:
+        table = {}
+        for seed in args.accuracy_seeds:
+            say(f"== phase 6 at seed {seed}")
+            table[seed] = phase_pose_accuracy(demo, kernels, seed, checks=False)[1]
+        say(f"   hits of 8 by seed, {smi}: {json.dumps(table)} "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return
 
-    say("== phase 2/7: kernels against their plain versions")
+    say("== phase 2/8: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
     train_records, bwd_vol_rows = phase_train_kernels(fused_sample, args.seed)
     records.update(train_records)
     k3 = phase_k3_shape(fused_sample, args.seed)
+    new_rows, held = phase_new_shapes(fused_sample, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
     say(f"   K1 at K3's shape: {json.dumps(k3)}")
     say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
+    say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
 
-    say(f"== phase 3/7: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/8: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -1385,40 +1875,48 @@ def main() -> None:
                          profile=True)
     say(f"   flagship launches per object: {json.dumps(counts)}")
 
-    say(f"== phase 4/7: demo family, learned weights, render of {N_HYPOTHESES}")
-    state = split_state_dict(from_jax_params(load_params_npz(
-        DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
-    demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
-                             zoo.demo_fuser(), state["fuser"],
-                             zoo.demo_photographer(), state["photographer"],
-                             camera_dist=zoo.DEMO_CAMERA_DIST)
+    say(f"== phase 4/8: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/7: flagship pose of view 15 of o0: CEM "
-        "(cross_entropy_quick) then refinement (adam_quick)")
+    say("== phase 5/8: flagship pose of view 15 of o0: CEM "
+        "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
+        "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
         "fwd": k2f_tables["refinement step"], "bwd": k2b_table})
     say(f"   pose path launches: {json.dumps(pose_counts)}")
-    del flagship
+    latent_cem, latent_refine = phase_latent_flagship(flagship, kernels, args.seed, held)
+    say(f"   latent path launches: CEM {json.dumps(latent_cem)}, refinement "
+        f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/7: pose accuracy, demo family, learned weights, 8 oracle targets")
-    phase_pose_accuracy(demo, kernels, args.seed)
+    say("== phase 6/8: pose accuracy, demo family, learned weights, 8 oracle targets: "
+        "CEM, Metropolis, estimate_batch")
+    accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/7: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/8: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
+    say("== phase 8/8: the pose service at flagship width, two rounds of requests")
+    service_counts = phase_service(flagship, kernels, args.seed)
+    say(f"   service launches, warm round: {json.dumps(service_counts)}")
+    del flagship
+    torch.cuda.empty_cache()
+
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
+    paths = {"pose": pose_counts, "train_step": train_counts,
+             "latent_cem": latent_cem, "latent_refine": latent_refine,
+             "metropolis_8_targets": accuracy_counts["Metropolis"],
+             "estimate_batch_8_targets": accuracy_counts["batch"],
+             "service_warm_round": service_counts}
     for key in records:
-        records[key]["launches_by_path"] = {"pose": pose_counts[key],
-                                            "train_step": train_counts[key]}
+        records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]
     say(json.dumps({"kernels": [records[k] for k in ("K1", "K1b", "K1bv", "K2", "K2b")]}))
     say(json.dumps({"ok": True, "device": {

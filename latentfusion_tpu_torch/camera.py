@@ -334,5 +334,12 @@ class Camera:
                          log_quaternion=self.log_quaternion.repeat(n, 1),
                          translation=self.translation.repeat(n, 1))
 
+    def repeat_interleave(self, n: int) -> "Camera":
+        """Each camera ``n`` times in a row: (c0, c0, ..., c1, c1, ...)."""
+        return self._new(intrinsic=self.intrinsic.repeat_interleave(n, dim=0),
+                         viewport=self.viewport.repeat_interleave(n, dim=0),
+                         log_quaternion=self.log_quaternion.repeat_interleave(n, dim=0),
+                         translation=self.translation.repeat_interleave(n, dim=0))
+
     def __repr__(self):
         return f"Camera(count={self.length}, device={self.device})"

@@ -57,6 +57,22 @@ class Observation:
     def __len__(self):
         return len(self.camera)
 
+    def __getitem__(self, item) -> "Observation":
+        """Frames ``item`` (an int keeps its batch dim of 1)."""
+        if isinstance(item, int):
+            item = slice(item, item + 1) if item != -1 else slice(-1, None)
+        return self._with(self.color[item], self.depth[item], self.mask[item],
+                          self.camera[item])
+
+    def expand(self, n: int) -> "Observation":
+        """A single frame repeated ``n`` times."""
+        if len(self) > 1:
+            raise ValueError(f"Must be single but has batch size {len(self)}.")
+        return self._with(self.color.expand(n, *self.color.shape[1:]),
+                          self.depth.expand(n, *self.depth.shape[1:]),
+                          self.mask.expand(n, *self.mask.shape[1:]),
+                          self.camera.repeat(n))
+
     # ----------------------------------------------------------- preprocessing
     def zoom(self, target_dist, target_size, camera: Camera = None) -> "Observation":
         """Crop and rescale around the object as seen from ``target_dist``."""

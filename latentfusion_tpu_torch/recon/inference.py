@@ -74,6 +74,21 @@ class LatentFusionModel:
         return models.encode(self.sculptor, self.fuser, obs.camera,
                              obs.color[None], obs.depth[None], obs.mask[None])
 
+    def compute_latent_code(self, observation: Observation,
+                            camera: Camera) -> torch.Tensor:
+        """The target's 2D latent at every camera of ``camera`` (already
+        zoomed): the observation is preprocessed once, repeated to
+        ``len(camera)`` if it is a single frame, and each frame is encoded
+        and decoded at its camera. Autograd stays on, so a loss of it
+        reaches the camera. Returns (N, C, H, W)."""
+        obs = self.preprocess_observation(observation)
+        if len(obs) == 1:
+            obs = obs.expand(len(camera))
+        _, z = models.autoencode(self.sculptor, self.fuser, self.photographer,
+                                 camera, obs.color[:, None], obs.depth[:, None],
+                                 obs.mask[:, None])
+        return z
+
     def decode_latent(self, z_obj: torch.Tensor, camera: Camera,
                       return_latent: bool = True, apply_mask: bool = False):
         """Decode one latent object at every camera of ``camera`` (already

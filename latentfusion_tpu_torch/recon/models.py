@@ -211,3 +211,16 @@ def decode(photographer: Photographer, z_obj: torch.Tensor, camera: Camera,
     y = photographer.interpret_logits(logits, apply_mask=apply_mask)
     y = {k: b2bv(v, num_views) for k, v in y.items()}
     return y, (b2bv(z, num_views) if return_latent else None)
+
+
+def autoencode(sculptor: Sculptor, fuser: nn.Module, photographer: Photographer,
+               camera: Camera, color: torch.Tensor,
+               depth: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None):
+    """Encode (B, 1, C, H, W) single views and decode each latent at its own
+    camera (length B). Returns (y, z_2d) with the view dim squeezed:
+    entries of ``y`` (B, ...), ``z_2d`` the Photographer's 2D latent."""
+    z_obj = encode(sculptor, fuser, camera, color, depth, mask)
+    y, z = decode(photographer, z_obj, camera, return_latent=True)
+    return {k: v.squeeze(1) for k, v in y.items()}, z.squeeze(1)
+

@@ -102,8 +102,8 @@ def render_ellipsoid_color(camera: Camera, depth, mask, axes=(0.15, 0.25, 0.35))
 
 class EllipsoidOracleModel:
     """The model interface the estimators use (``input_size``,
-    ``camera_dist``, ``device``, ``decode_latent``), rendering the analytic
-    ellipsoid; the latent is ignored."""
+    ``camera_dist``, ``device``, ``decode_latent``, ``compute_latent_code``),
+    rendering the analytic ellipsoid; the latent is ignored."""
 
     def __init__(self, input_size: int = 64, camera_dist: float = 3.90625,
                  axes=(0.15, 0.25, 0.35), device="cuda"):
@@ -123,6 +123,10 @@ class EllipsoidOracleModel:
         z_lat = (torch.zeros(1, camera.length, 1, device=camera.device)
                  if return_latent else None)
         return y, z_lat
+
+    def compute_latent_code(self, observation: Observation, camera: Camera) -> torch.Tensor:
+        """The oracle has no latent: zeros (N, 1), like ``decode_latent``'s."""
+        return torch.zeros(camera.length, 1, device=camera.device)
 
     def make_observation(self, camera: Camera, shaded: bool = False) -> Observation:
         """The ground-truth full-frame observation: shaded color, or the

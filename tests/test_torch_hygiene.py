@@ -79,6 +79,10 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
         LatentFusionModel(*parts, camera_dist=1.5)
     with pytest.raises(RuntimeError):
         LatentFusionModel.from_checkpoint(tmp_path / "unread.pth")
+    from latentfusion_tpu_torch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--demo-tiny", "--stdio"])
 
 
 def test_pose_entry_points_raise_without_gpu(no_gpu):

@@ -236,17 +236,19 @@ def test_gmm_fit_from_jax_initial_means_and_blend(rng):
     gj = jgmm.fit(key, jnp.asarray(data), 4, sample_weights=jnp.asarray(weights))
     sw = jnp.asarray(weights) / jnp.maximum(jnp.asarray(weights).sum(), 1e-12)
     idx = np.asarray(jax.random.choice(key, 90, (4,), replace=False, p=sw))
-    gt_ = tgmm.fit(t(data), 4, sample_weights=t(weights), init_means=t(data[idx]))
+    # The port's fits are batched over a leading axis of mixtures.
+    gt_ = tgmm.fit(t(data)[None], 4, sample_weights=t(weights)[None],
+                   init_means=t(data[idx])[None])
     for a, b in zip(gt_, gj):
-        close_rel(a, b, 1e-4)
-    g0 = tgmm.fit(t(data), 4, torch.Generator().manual_seed(0))
-    assert g0.means.shape == (4, 6) and abs(float(g0.weights.sum()) - 1) < 1e-5
+        close_rel(a[0], b, 1e-4)
+    g0 = tgmm.fit(t(data)[None], 4, torch.Generator().manual_seed(0))
+    assert g0.means.shape == (1, 4, 6) and abs(float(g0.weights.sum()) - 1) < 1e-5
     bj = jgmm.blend(gj, gj, 0.75)
     bt = tgmm.blend(gt_, gt_, 0.75)
     for a, b in zip(bt, bj):
-        close_rel(a, b, 1e-4)
+        close_rel(a[0], b, 1e-4)
     draws = tgmm.sample(bt, 5000, torch.Generator().manual_seed(1))
-    close_rel(draws.mean(0), (bt.weights[:, None] * bt.means).sum(0), 0.05)
+    close_rel(draws[0].mean(0), (bt.weights[0, :, None] * bt.means[0]).sum(0), 0.05)
 
 
 def test_camera_metrics_match_jax(gt_setup):
@@ -617,11 +619,13 @@ def test_cem_finds_orientation(gt_setup, oracles):
                   for q in gt_quats)
     assert float(torch.linalg.norm(best.translation[0] - gt.translation[0])) < 0.25
     assert rot_err < 0.8
-    with pytest.raises(NotImplementedError, match="latent"):
-        tpe.CrossEntropyPoseEstimator(
-            model=oracles[1], ranking_size=8, loss_weights={"latent": 1.0},
-            num_samples=8, num_elites=4, num_iters=1, num_gmm_components=2,
-            learning_rate=0.9).estimate(None, ttarget)
+    # The latent term runs (the oracle's latents are zeros, so it is a
+    # constant 1 on every hypothesis).
+    latent = tpe.CrossEntropyPoseEstimator(
+        model=oracles[1], ranking_size=8, loss_weights={"latent": 1.0},
+        num_samples=8, num_elites=4, num_iters=2, num_gmm_components=2,
+        learning_rate=0.9).estimate(None, ttarget)
+    assert len(latent) == 8 and bool(torch.isfinite(latent.translation).all())
 
 
 class JaxCemDraws:
@@ -638,20 +642,22 @@ class JaxCemDraws:
         self.n_components = n_components
 
     def init_index(self, weights):
-        n = weights.shape[0]
+        """weights (1, N), the port's batched layout for one object."""
+        n = weights.shape[1]
         return t(jax.random.choice(self.fit_key, n, (self.n_components,),
                                    replace=n < self.n_components,
-                                   p=jnp.asarray(weights.numpy())))
+                                   p=jnp.asarray(weights[0].numpy())))[None]
 
     def sample(self, weights, n):
         self.key, k_samp, self.fit_key = jax.random.split(self.key, 3)
         k1, k2, k3 = jax.random.split(k_samp, 3)
         k_comp, k_eps = jax.random.split(k1)
-        logits = jnp.log(jnp.maximum(jnp.asarray(weights.numpy()), 1e-30))
+        logits = jnp.log(jnp.maximum(jnp.asarray(weights[0].numpy()), 1e-30))
         comp = jax.random.categorical(k_comp, logits, shape=(n,))
         noise = jnp.concatenate([jax.random.normal(k2, (n, 3)),
                                  jax.random.normal(k3, (n, 3))], axis=1)
-        return t(comp).long(), t(jax.random.normal(k_eps, (n, 6))), t(noise)
+        return (t(comp).long()[None], t(jax.random.normal(k_eps, (n, 6)))[None],
+                t(noise)[None])
 
 
 OFFSET = (0.03, -0.02, 0.01)  # object-frame centre of the off-centre ellipsoid
