@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed N] [--accuracy-seeds N [N ...]]
+    python3 chip_smoke.py [--seed N] [--unseen-latent-rank]
+                          [--accuracy-seeds N [N ...] [--with-unseen]]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -8,7 +9,11 @@ line after it ends:
 1. device: the card's name and power limit; build the five CUDA kernels
    (K1-fwd, K1-bwd-grid and K1-bwd-vol in csrc/fused_sample.cu, K2-fwd and
    K2-bwd in csrc/lrelu_pnorm.cu) with nvcc, one process per source,
-   started together.
+   started together. Then the reference objects o0 and o1 (held-out
+   objects 0 and 1 of the unseen-object rig's lobe pool, seed 7919) are
+   rendered by the lobe oracle at the rig's 16 reference cameras of
+   480x640 (latentfusion_tpu_torch/unseen_cameras.json); each view's sums
+   of depth, mask and color must agree with the JAX package's render's.
 2. kernels: each kernel against its plain PyTorch version at the shapes of
    the build + render path, of the refinement backward and of the training
    step (K1-bwd-vol on the flagship recipe's decode and encode grids, with
@@ -28,17 +33,19 @@ line after it ends:
    K1-bwd-grid and K1-bwd-vol kernel ran (staged and tiled at 16^3 and
    32^3). Then K1's kernels at the shapes of the multi-object and latent
    paths (two objects' CEM render and refinement step; a latent refinement
-   step's render, autoencode decode and Sculptor camera->object sampling),
+   step's render, autoencode decode and Sculptor camera->object sampling)
+   and of phase 9 (the demo and mid families' 8^3 latents: 16 views'
+   camera->object sampling, four objects' CEM render and refinement step),
    each against its plain version, twice for the same bits, and timed.
-3. flagship: for each committed object (artifacts/serving/frames/refs_o*.npz,
-   16 views of 480x640 RGB-D), build the latent object with the flagship
+3. flagship: for each reference object (o0 and o1, 16 rendered views of
+   480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
    cameras; the launch counters must show both kernels on this path, and
    the result must agree with the same path on the plain versions. One
    render of the first object is profiled: device time by kernel.
 4. demo: the same at the demo family with the learned weights of
    artifacts/encoder_distill/encoder_distill.npz.
-5. pose, flagship: the latent of views 0-14 of refs_o0, then the pose of
+5. pose, flagship: the latent of views 0-14 of o0, then the pose of
    view 15 (known) by CEM (configs/cross_entropy_quick.toml), then gradient
    refinement (configs/adam_quick.toml); the launch counters must show all
    four kernels on this path. The refinement runs again from the first
@@ -74,9 +81,11 @@ line after it ends:
    and mask BCE at weight 25, Adam lr 1e-3, betas (0, 0.99). One step's
    gradient must agree with the plain versions (see gradient_check);
    the launch counters must show K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd on
-   it (the check also prints, ungated, whether the step's gradients repeat
-   their bits: training keeps cuDNN's default selection). Then ms per
-   step, peak memory and a profile of one step, a run on a pool of batches
+   it. Two steps from the same state and batch must give the same gradient
+   bits (the step runs on cuDNN's deterministic selection); the same with
+   cuDNN's default selection patched in, and ms per step under each, are
+   printed. Then ms per step, peak memory and a profile of one step, a run
+   on a pool of batches
    whose held-out loss must fall, and ms per step with K1-bwd-vol's tiled
    kernel and with the atomic kernel it replaced, in turns.
 8. the pose service (latentfusion_tpu_torch/serve.py) at flagship width,
@@ -87,6 +96,18 @@ line after it ends:
    estimate the direct coarse + fine estimate with the same seed, and each
    object's refinement step in the two-object batch its single-object
    step. Seconds, launches and peak memory per request.
+9. unseen objects: the pool-128 checkpoint
+   (artifacts/unseen_objects_pool128, demo family) on held-out objects 0-3
+   of lobe pool seed 7919, never rendered in its training: the latent of
+   each from JAX's 16 reference views, then JAX's 6 target poses at the
+   published budget (CEM 128 x 10, 48 elites, refinement 16 x 150, depth
+   ranking), each target index one ``estimate_batch`` over the 4 objects;
+   at least 16 of 24 within a tenth of the diameter (the JAX record is 19).
+   Every K1 call must be a shape phase 2 held. Then one target index at
+   the mid width (the flagship's widths at 128^2) with weights N(0, 1)
+   from --seed, for time, memory and launches. ``--unseen-latent-rank``
+   adds an ungated pass with the latent ranking term at 0.2;
+   ``--with-unseen`` runs this rig, ungated, at each of --accuracy-seeds.
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
@@ -111,12 +132,20 @@ import torch
 from torch.autograd import DeviceType
 
 ROOT = Path(__file__).resolve().parent
-FRAMES = ROOT / "artifacts" / "serving" / "frames"
+POOL128 = ROOT / "artifacts" / "unseen_objects_pool128"
 DISTILL = ROOT / "artifacts" / "encoder_distill"
 CONFIGS = ROOT / "configs"
 N_HYPOTHESES = 128
 N_REFINE = 8  # adam_quick's hypotheses
-CAMERA_DIST = 5.78  # the committed objects are unit-sized, seen from ~5.7
+CAMERA_DIST = 5.78  # the reference objects are unit-sized, seen from ~5.7
+# The reference objects o0 and o1: held-out objects 0 and 1 of the unseen-object
+# rig's lobe pool (seed 7919), rendered at the rig's 16 reference cameras.
+HELDOUT_POOL_SEED = 7919
+SUMS_TOL = 1e-3  # a view's depth and color sums, relative; its mask count, of its pixels
+UNSEEN_OBJECTS, UNSEEN_TARGETS, UNSEEN_INPUT_SIZE = 4, 6, 128
+UNSEEN_BUDGET = {"cem_samples": 128, "cem_iters": 10, "cem_elites": 48,
+                 "refine_samples": 16, "refine_iters": 150}
+UNSEEN_GATE = 16  # of 24 held-out targets within 0.1d (the JAX record: 19)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 FP32_TOL = 1e-5  # kernel vs plain, fp32: same arithmetic, other sum order
@@ -221,7 +250,7 @@ def phase_kernels(fused_sample, lrelu_pnorm, seed):
     # shared latent, 128 cameras for a CEM render, the first 8 for a
     # refinement step) and encode (16 views, each its own volume). The
     # volumes are random; the grids set the access pattern.
-    obs = load_views(FRAMES / "refs_o0.npz", dev)
+    obs = reference_views(0, dev)
     size = zoo.FLAGSHIP_INPUT_SIZE
     decode_grid = transforms.object_to_camera_grid(
         hypothesis_cameras(obs, size, CAMERA_DIST, g), 16)
@@ -367,7 +396,7 @@ def phase_bwd_kernels(fused_sample, lrelu_pnorm, seed):
 
     # K1-bwd-grid on the decode grid of 8 hypotheses of object o0 (one
     # shared latent, 256 channels, 16^3 samples).
-    obs = load_views(FRAMES / "refs_o0.npz", dev)
+    obs = reference_views(0, dev)
     cams = hypothesis_cameras(obs, zoo.FLAGSHIP_INPUT_SIZE, CAMERA_DIST, g)[:N_REFINE]
     grid = transforms.object_to_camera_grid(cams, 16)
     del obs
@@ -718,7 +747,7 @@ def phase_k3_shape(fused_sample, seed):
 def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
     """One K1 kernel ("fwd", "bwd_grid" or "bwd_vol") at one shape, fp32:
     against its plain version, run twice for the same bits through the
-    kernel its counter names (staged or tiled: every volume here is 16^3),
+    kernel its counter names (staged or tiled: every volume here is 16^3 or 8^3),
     then kernel, plain and library device ms and the bound. Returns the
     row."""
     nv, n, c = vol.shape[0], grid.shape[0], vol.shape[1]
@@ -762,7 +791,8 @@ def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
                kernel=str(plan), max_abs_err=float((out - ref).abs().max()), rel_err=err,
                same_bits=same, ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
                library_ms=time_ms(lib), bound_ms=b, bound_by=by)
-    say(f"  K1-{op} {label}: vol {tuple(vol.shape)}, {n} grids of 16^3, {padding} float32, "
+    say(f"  K1-{op} {label}: vol {tuple(vol.shape)}, {n} grids of "
+        f"{'x'.join(map(str, grid.shape[1:4]))}, {padding} float32, "
         f"{plan}: rel err {err:.3g} (tol {FP32_TOL:.3g}); run twice, same bits: {same}; "
         f"{row['ms']:.4f} ms, bound {b:.4f} ms ({by}), plain {row['plain_ms']:.3f} ms, "
         f"library {row['library_ms']:.4f} ms (device time)")
@@ -781,24 +811,37 @@ def phase_new_shapes(fused_sample, seed):
     and refinement step (2 x 8); a latent refinement step of 16 hypotheses:
     the render (one latent), the target's autoencode decode (16 latents, one
     grid each) and the Sculptor's camera->object sampling (16 camera
-    volumes of 128 and 256 channels). Returns the rows and the set of
-    (op, volume shape, grids) held, which phase 5 checks a recorded latent
-    step against."""
+    volumes of 128 and 256 channels); and the unseen-object rig's (phase 9;
+    8^3 latents, the demo family's 128 channels and the mid family's 256):
+    the Sculptor's camera->object sampling of 16 views (64, 128 and 256
+    channels), four objects' CEM render (4 x 128 hypotheses) and refinement
+    step (4 x 16). Returns the rows and the set of (op, volume shape, grids)
+    held, which phases 5 and 9 check their recorded K1 calls against."""
     from latentfusion_tpu_torch import transforms, zoo
     from latentfusion_tpu_torch.camera import Camera
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     size = zoo.FLAGSHIP_INPUT_SIZE
-    cams = [hypothesis_cameras(load_views(FRAMES / f"refs_o{i}.npz", dev), size,
-                               CAMERA_DIST, g) for i in (0, 1)]
+    obs = [reference_views(i, dev) for i in (0, 1)]
+    cams = [hypothesis_cameras(o, size, CAMERA_DIST, g) for o in obs]
     latent_cams = cams[0][:16]
     grids = {"render2": transforms.object_to_camera_grid(Camera.cat(cams), 16),
              "refine2": transforms.object_to_camera_grid(
                  Camera.cat([c[:N_REFINE] for c in cams]), 16),
              "latent": transforms.object_to_camera_grid(latent_cams, 16),
              "sculptor": transforms.camera_to_object_grid(latent_cams, 16)}
-    del cams
+    # The unseen-object rig at 128^2: 16 reference views; four objects'
+    # hypotheses (each object's 128 hypotheses of o0's or o1's views).
+    unseen = [hypothesis_cameras(obs[i % 2], UNSEEN_INPUT_SIZE, CAMERA_DIST, g)
+              for i in range(UNSEEN_OBJECTS)]
+    grids.update({
+        "unseen_build": transforms.camera_to_object_grid(
+            obs[0].camera.zoom(None, UNSEEN_INPUT_SIZE, CAMERA_DIST), 8),
+        "unseen_render": transforms.object_to_camera_grid(Camera.cat(unseen), 8),
+        "unseen_refine": transforms.object_to_camera_grid(
+            Camera.cat([c[:UNSEEN_BUDGET["refine_samples"]] for c in unseen]), 8)})
+    del cams, obs, unseen
     cases = (("fwd", "two-object CEM render", 2, 256, "render2"),
              ("fwd", "two-object refinement", 2, 256, "refine2"),
              ("bwd_grid", "two-object refinement", 2, 256, "refine2"),
@@ -810,12 +853,20 @@ def phase_new_shapes(fused_sample, seed):
              ("fwd", "latent Sculptor camera->object", 16, 128, "sculptor"),
              ("fwd", "latent Sculptor camera->object", 16, 256, "sculptor"),
              ("bwd_grid", "latent Sculptor camera->object", 16, 256, "sculptor"))
+    for c, family in ((128, "demo"), (256, "mid")):
+        cases += (("fwd", f"unseen {family} Sculptor camera->object", 16, c, "unseen_build"),
+                  ("fwd", f"unseen {family} Sculptor camera->object", 16, c // 2, "unseen_build"),
+                  ("fwd", f"unseen {family} four-object CEM render", 4, c, "unseen_render"),
+                  ("fwd", f"unseen {family} four-object refinement", 4, c, "unseen_refine"),
+                  ("bwd_grid", f"unseen {family} four-object refinement", 4, c,
+                   "unseen_refine"))
     rows = []
     for op, label, nv, c, key in cases:
         grid = grids[key]
-        vol = torch.randn(nv, c, 16, 16, 16, generator=g, device=dev)
+        size = 8 if key.startswith("unseen") else 16
+        vol = torch.randn(nv, c, size, size, size, generator=g, device=dev)
         gout = (None if op == "fwd" else
-                torch.randn(grid.shape[0], c, 16, 16, 16, generator=g, device=dev))
+                torch.randn(grid.shape[0], c, *grid.shape[1:4], generator=g, device=dev))
         rows.append(k1_at(fused_sample, op, label, vol, grid, gout))
         if (op, key) == ("bwd_grid", "refine2"):
             alt, alt_ms = bwd_grid_two_waves(fused_sample, vol, grid, gout, "border")
@@ -833,17 +884,48 @@ def phase_new_shapes(fused_sample, seed):
     return rows, {(r["op"], tuple(r["vol"]), r["grids"]) for r in rows}
 
 
-def load_views(path: Path, device):
-    """A committed reference object as an Observation (16 views)."""
-    from latentfusion_tpu_torch.camera import Camera
-    from latentfusion_tpu_torch.observation import Observation
+def reference_views(index: int, device):
+    """Reference object o<index> (held-out object ``index`` of the lobe pool
+    of seed HELDOUT_POOL_SEED) at the unseen-object rig's 16 reference
+    cameras of 480x640, rendered by the lobe oracle: an Observation of
+    shaded color, depth and mask."""
+    from latentfusion_tpu_torch import testing, unseen_eval
 
-    with np.load(path) as z:
-        arrays = {k: z[k] for k in ("color", "depth", "mask", "intrinsic", "extrinsic")}
-    h, w = arrays["color"].shape[-2:]
-    camera = Camera(arrays["intrinsic"], arrays["extrinsic"], width=w, height=h,
-                    device=device)
-    return Observation(arrays["color"], arrays["depth"], arrays["mask"], camera)
+    pool, _ = testing.sample_lobe_shapes(HELDOUT_POOL_SEED, index + 1, device=device)
+    ref_cams, _ = unseen_eval.load_cameras(device=device)
+    return testing.lobe_observation(testing.index_lobe_shape(pool, index), ref_cams)
+
+
+def check_reference_views(device) -> None:
+    """Render o0 and o1 and hold each view's sums of depth and color
+    (relative) and its mask's count (of the view's pixels) within SUMS_TOL
+    of the JAX package's fp32 render's (``unseen_cameras.json``). Prints,
+    ungated, how far they are from the sums of the JAX package's renders
+    made on the TPU (``refs_o*.npz``), whose reduced-precision products move
+    the grazing rays."""
+    from latentfusion_tpu_torch import unseen_eval
+
+    sums = json.loads(unseen_eval.CAMERAS.read_text())["sums"]
+    worst = {}
+    for index in (0, 1):
+        obs = reference_views(index, device)
+        pixels = obs.camera.width * obs.camera.height
+        got = {k: getattr(obs, k).double().flatten(1).sum(1).cpu().numpy()
+               for k in ("depth", "mask", "color")}
+        for source in ("jax_float32", "frames"):
+            for k, v in got.items():
+                ref = np.asarray(sums[f"o{index}"][source][k])
+                err = np.abs(v - ref) / (pixels if k == "mask" else np.abs(ref))
+                key = (source, k)
+                worst[key] = max(worst.get(key, 0.0), float(err.max()))
+        del obs
+    say(f"  reference views o0 and o1 (16 x 480x640 each) rendered; largest difference of "
+        f"a view's sums (depth and color relative, mask count over the view's pixels) from "
+        f"the JAX fp32 render's {json.dumps({k: v for (s, k), v in worst.items() if s == 'jax_float32'})} "
+        f"(tol {SUMS_TOL}), from the JAX renders made on the TPU, not gated, "
+        f"{json.dumps({k: v for (s, k), v in worst.items() if s == 'frames'})}")
+    if not max(v for (s, _), v in worst.items() if s == "jax_float32") <= SUMS_TOL:
+        fail("the reference views' renders disagree with the JAX package's")
 
 
 def hypothesis_cameras(obs, input_size, camera_dist, generator):
@@ -879,8 +961,8 @@ def drive_slice(label, model, objects, kernels, seed, profile):
 
     fused_sample, lrelu_pnorm = kernels
     counts = {}
-    for name, path in objects:
-        obs = load_views(path, model.device)
+    for name, index in objects:
+        obs = reference_views(index, model.device)
         cams = hypothesis_cameras(obs, model.input_size, model.camera_dist,
                                   torch.Generator(device=model.device).manual_seed(seed))
         fused_sample.LAUNCHES = lrelu_pnorm.LAUNCHES = 0
@@ -1114,7 +1196,7 @@ def nondeterministic_ops(step_fn) -> list:
 
 
 def phase_pose_flagship(model, kernels, seed, k2_tables):
-    """CEM then refinement for view 15 of refs_o0 from the latent of views
+    """CEM then refinement for view 15 of o0 from the latent of views
     0-14; then the refinement again from the same coarse cameras, which must
     end on the same bits, and a step's cost of the deterministic cuDNN
     selection that makes it so. ``k2_tables`` holds phase 2's K2-fwd and
@@ -1122,7 +1204,7 @@ def phase_pose_flagship(model, kernels, seed, k2_tables):
     counts of the pose path by kernel."""
     from latentfusion_tpu_torch.pose import estimation, metrics
 
-    obs = load_views(FRAMES / "refs_o0.npz", model.device)
+    obs = reference_views(0, model.device)
     target = views(obs, 15, 16)
     z = model.build_latent_object(views(obs, 0, 15))
     del obs
@@ -1260,7 +1342,7 @@ def record_k1(fused_sample, step_fn) -> dict:
 
 
 def phase_latent_flagship(model, kernels, seed, held):
-    """The latent path for view 15 of refs_o0 from the latent of views
+    """The latent path for view 15 of o0 from the latent of views
     0-14: CEM scored by the latent term (configs/cross_entropy_latent.toml)
     then refinement with it (configs/adam_latent.toml), each launch-counted
     with its peak memory; the refinement again from the same coarse cameras
@@ -1272,7 +1354,7 @@ def phase_latent_flagship(model, kernels, seed, held):
 
     from latentfusion_tpu_torch.pose import estimation
 
-    obs = load_views(FRAMES / "refs_o0.npz", model.device)
+    obs = reference_views(0, model.device)
     target = views(obs, 15, 16)
     z = model.build_latent_object(views(obs, 0, 15))
     del obs
@@ -1465,6 +1547,11 @@ def phase_pose_accuracy(model, kernels, seed, checks=True):
         mc = metrics.camera_metrics(gt, cams[0], points, 1.0)
         mr = metrics.camera_metrics(gt, best[0], points, 1.0)
         ok = mr["add_s"] < 0.1 * ORACLE_DIAMETER
+        if not ok:
+            say(f"  {label} target {i} missed; the rig's reference cameras, the target's "
+                f"camera and the coarse cameras handed to refinement: " + json.dumps(
+                    {"reference": camera_record(ref_cams), "target": camera_record(gt),
+                     "coarse": camera_record(cams[:16])}))
         say(f"  {label} target {i}: coarse add_s {mc['add_s']:.4f} rot "
             f"{mc['rotation_dist']:.3f}; refined ({stats['num_steps']} steps) add_s "
             f"{mr['add_s']:.4f} rot {mr['rotation_dist']:.3f} trans "
@@ -1519,6 +1606,13 @@ def phase_pose_accuracy(model, kernels, seed, checks=True):
     del z, z8, targets
     torch.cuda.empty_cache()
     return counts, hits
+
+
+def camera_record(cam) -> dict:
+    """A camera's leaves as lists, exact to the last bit of each float32."""
+    return {"intrinsic": cam.intrinsic.tolist(), "extrinsic": cam.extrinsic.tolist(),
+            "viewport": cam.viewport.tolist(), "z_span": cam.z_span, "width": cam.width,
+            "height": cam.height}
 
 
 def batch_step_check(fine, z_objs, targets, cams) -> None:
@@ -1577,7 +1671,7 @@ def batch_step_check(fine, z_objs, targets, cams) -> None:
 def phase_service(model, kernels, seed):
     """The service at flagship width: a PoseService (cross_entropy_quick
     then adam_quick, top 8) driven through serve_lines, two rounds of
-    ping, register o0 and o1 (views 0-14 of refs_o0/o1), an estimate of
+    ping, register o0 and o1 (views 0-14 of each), an estimate of
     view 15 of o0, of that frame twice, of o0 and o1 together, a malformed
     line, an unknown command and a shutdown. Gates: the responses; the
     single estimate against the direct coarse + fine estimate with the same
@@ -1594,10 +1688,12 @@ def phase_service(model, kernels, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
-        for obj in ("o0", "o1"):
-            with np.load(FRAMES / f"refs_{obj}.npz") as z:
-                arrays = {k: z[k] for k in ("color", "depth", "mask", "intrinsic",
-                                            "extrinsic")}
+        for index, obj in enumerate(("o0", "o1")):
+            obs = reference_views(index, model.device)
+            arrays = {"color": obs.color, "depth": obs.depth, "mask": obs.mask,
+                      "intrinsic": obs.camera.intrinsic, "extrinsic": obs.camera.extrinsic}
+            arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+            del obs
             for part, rows in (("refs", slice(0, 15)), ("target", slice(15, 16))):
                 paths[part, obj] = str(Path(tmp) / f"{part}_{obj}.npz")
                 np.savez(paths[part, obj], **{
@@ -1690,6 +1786,86 @@ def phase_service(model, kernels, seed):
     return warm_counts
 
 
+def unseen_round(label, model, views, clouds, extra, seed, held, kernels) -> dict:
+    """One pass of the unseen-object rig (``unseen_eval.evaluate_batch``):
+    for each target index one ``estimate_batch`` of CEM and one of
+    refinement over the objects of ``views`` (each (reference
+    Observation, [(camera, target Observation)])), launch-counted, with its
+    peak memory; every K1 call, recorded, must be a shape phase 2 held
+    (``held``; None skips the check). Prints hits by object, seconds per
+    batch, peak memory and launches; returns them with the rows."""
+    from latentfusion_tpu_torch import unseen_eval
+
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    out = {}
+    reset_counters(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    calls = record_k1(kernels[0], lambda: out.update(zip(("rows", "seconds"), (
+        unseen_eval.evaluate_batch(model, [v[0] for v in views], [v[1] for v in views],
+                                   clouds, UNSEEN_BUDGET, extra, tag=f"  {label} ",
+                                   generator=g)))))
+    out.update(total_s=time.perf_counter() - t0, counts=read_counters(kernels),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               hits=[sum(r["add_s_01d"] for r in rows) for rows in out["rows"]])
+    say(f"  {label}: within 0.1d by object {out['hits']}, {sum(out['hits'])} of "
+        f"{sum(len(rows) for rows in out['rows'])}; s per batch of {len(views)} objects "
+        f"{json.dumps([round(x, 3) for x in out['seconds']])} ({out['total_s']:.1f} s with the "
+        f"builds); peak memory {out['peak_gb']:.2f} GB; launches {json.dumps(out['counts'])}; "
+        f"K1 calls (op, volume, grids: calls) {json.dumps({str(k): v for k, v in calls.items()})}")
+    if held is not None:
+        missing = [k for k in calls if k not in held]
+        if missing:
+            fail(f"unseen objects: K1 ran at shapes phase 2 did not hold: {missing}")
+    return out
+
+
+def phase_unseen(kernels, seed, held, checks=True, latent_rank=False) -> dict:
+    """The unseen-object rig of tools/train_unseen_objects.py on the
+    pool-128 checkpoint (demo family, ``artifacts/unseen_objects_pool128``):
+    held-out objects 0-3 of lobe pool seed 7919, never rendered in its
+    training, each from JAX's 16 reference views, at JAX's 6 target
+    cameras, at the published budget (CEM 128 x 10, 48 elites, then
+    refinement 16 x 150, depth-only ranking), each target index one
+    ``estimate_batch`` over the 4 objects; gated (``checks``) at UNSEEN_GATE
+    of 24 within 0.1d. ``latent_rank`` adds an ungated pass with the latent
+    ranking term at 0.2 (its K1 calls not checked against phase 2's
+    shapes). Then one target index at the mid width (the
+    flagship's widths at 128^2) with N(0, 1) weights drawn from ``seed``, for
+    time, memory and launches. Returns the passes by name."""
+    from latentfusion_tpu_torch import testing, unseen_eval, zoo
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    dev = torch.device("cuda")
+    model = unseen_eval.build_model("demo", POOL128 / "unseen_objects.npz", dev)
+    ref_cams, target_cams = unseen_eval.load_cameras(16, UNSEEN_TARGETS, dev)
+    pool, clouds = testing.sample_lobe_shapes(HELDOUT_POOL_SEED, UNSEEN_OBJECTS, device=dev)
+    views = [unseen_eval.object_views(pool, h, ref_cams, target_cams)
+             for h in range(UNSEEN_OBJECTS)]
+    passes = {"demo": unseen_round("pool-128", model, views, clouds, {}, seed, held, kernels)}
+    if latent_rank:
+        # The latent term's autoencode runs K1 at shapes phase 2 does not hold.
+        passes["latent_rank"] = unseen_round("pool-128, latent ranking 0.2", model, views,
+                                             clouds, {"latent": 0.2}, seed, None, kernels)
+    hits = sum(passes["demo"]["hits"])
+    if checks and hits < UNSEEN_GATE:
+        fail(f"unseen objects: {hits} of {UNSEEN_OBJECTS * UNSEEN_TARGETS} held-out targets "
+             f"within 0.1d, fewer than {UNSEEN_GATE}")
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(seed)
+    mid = LatentFusionModel(zoo.mid_sculptor(generator=gen), None,
+                            zoo.mid_fuser(generator=gen), None,
+                            zoo.mid_photographer(generator=gen), None,
+                            camera_dist=unseen_eval.CAMERA_DIST)
+    passes["mid"] = unseen_round("mid width, N(0, 1) weights (accuracy not expected)", mid,
+                                 [(ref, targets[:1]) for ref, targets in views], clouds, {},
+                                 seed, held, kernels)
+    del mid, views
+    torch.cuda.empty_cache()
+    return passes
+
+
 def train_grads(step, mods, batch, rotations):
     """One step's loss and parameter gradients. The state's optimizer is SGD
     at learning rate 0, so the weights stay as they are."""
@@ -1700,6 +1876,43 @@ def train_grads(step, mods, batch, rotations):
     return scalars["loss/generator/total"], {
         f"{name}.{pname}": p.grad.clone() for name, m in mods.items()
         for pname, p in m.named_parameters()}
+
+
+def train_determinism(step, mods, batch, rotations) -> dict:
+    """One training step's gradients twice as the package runs it (cuDNN's
+    deterministic selection, ``pose.estimation.deterministic_cudnn``) and
+    twice with cuDNN's default selection patched in: for each, whether the
+    two runs give the same bits and the first parameter (in module order)
+    whose gradient parts. Then ms per step (CUDA events, 2 steps after a
+    warm-up) under each, in turns (deterministic, default, default,
+    deterministic), and the cost of the deterministic selection."""
+    from latentfusion_tpu_torch.pose import estimation
+    from latentfusion_tpu_torch.train import step as tstep
+
+    selections = {"deterministic": contextlib.nullcontext,
+                  "default": lambda: mock.patch.object(estimation, "deterministic_cudnn",
+                                                       contextlib.nullcontext)}
+    out = {}
+    for label, selection in selections.items():
+        with selection():
+            _, first = train_grads(step, mods, batch, rotations)
+            _, second = train_grads(step, mods, batch, rotations)
+        parted = [k for k in first if not torch.equal(first[k], second[k])]
+        out[label] = {"same_bits": not parted, "parameters_parted": len(parted),
+                      "first_parted": parted[0] if parted else None, "ms": []}
+        del first, second
+    frozen = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
+    for label in ("deterministic", "default", "default", "deterministic"):
+        with selections[label]():
+            out[label]["ms"].append(event_ms(
+                lambda: step(frozen, batch, rotations=rotations), iters=2, warmup=1))
+    det, dflt = (sum(out[k]["ms"]) / len(out[k]["ms"]) for k in ("deterministic", "default"))
+    out["cost"] = (det - dflt) / dflt
+    say(f"  training step twice from the same state and batch, and ms per step, under "
+        f"cuDNN's deterministic selection (the package's) and its default: {json.dumps(out)}")
+    if not out["deterministic"]["same_bits"]:
+        fail("training: two steps from the same state and batch gave other gradient bits")
+    return out
 
 
 def phase_train(kernels, seed):
@@ -1731,6 +1944,7 @@ def phase_train(kernels, seed):
     rotations = [quaternion.random(1, g) for _ in range(TRAIN_MICROBATCHES)]
     gradient_check("training step", lambda: train_grads(step, mods, pool[0], rotations),
                    nn.ModuleList(mods.values()), kernels)
+    train_determinism(step, mods, pool[0], rotations)
 
     adam = tstep.init_train_state(mods, tstep.make_optimizer("adam", 1e-3))
     frozen = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
@@ -1812,6 +2026,12 @@ def main() -> None:
                         help="build the kernels, run phase 6's three accuracy rigs "
                              "(CEM, Metropolis, estimate_batch) ungated at each seed, "
                              "print the hits and exit")
+    parser.add_argument("--with-unseen", action="store_true",
+                        help="with --accuracy-seeds, also run phase 9's unseen-object rig "
+                             "ungated at each seed")
+    parser.add_argument("--unseen-latent-rank", action="store_true",
+                        help="phase 9 also runs the rig with the latent ranking term at 0.2 "
+                             "(ungated)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is "
@@ -1829,12 +2049,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     kernels = (fused_sample, lrelu_pnorm)
-    objects = [(f"o{i}", FRAMES / f"refs_o{i}.npz") for i in (0, 1)]
+    objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/8: device and kernel build")
+    say("== phase 1/9: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
+    check_reference_views(torch.device("cuda"))
     state = split_state_dict(from_jax_params(load_params_npz(
         DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
     demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
@@ -1846,11 +2067,17 @@ def main() -> None:
         for seed in args.accuracy_seeds:
             say(f"== phase 6 at seed {seed}")
             table[seed] = phase_pose_accuracy(demo, kernels, seed, checks=False)[1]
-        say(f"   hits of 8 by seed, {smi}: {json.dumps(table)} "
+            if args.with_unseen:
+                say(f"== phase 9 at seed {seed}")
+                passes = phase_unseen(kernels, seed, None, checks=False,
+                                      latent_rank=args.unseen_latent_rank)
+                table[seed].update({f"unseen {k}": sum(v["hits"]) for k, v in passes.items()
+                                    if k != "mid"})
+        say(f"   hits by seed (phase 6 of 8, phase 9 of 24), {smi}: {json.dumps(table)} "
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/8: kernels against their plain versions")
+    say("== phase 2/9: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -1865,7 +2092,7 @@ def main() -> None:
     say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
     say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
 
-    say(f"== phase 3/8: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/9: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -1875,12 +2102,12 @@ def main() -> None:
                          profile=True)
     say(f"   flagship launches per object: {json.dumps(counts)}")
 
-    say(f"== phase 4/8: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/9: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/8: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/9: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -1891,22 +2118,30 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/8: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/9: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "CEM, Metropolis, estimate_batch")
     accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/8: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/9: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/8: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/9: the pose service at flagship width, two rounds of requests")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round: {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
+
+    say(f"== phase 9/9: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+        f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
+    t9 = time.perf_counter()
+    unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
+    say(f"   unseen objects: {sum(unseen['demo']['hits'])} of "
+        f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
+        f"{time.perf_counter() - t9:.1f} s on {smi}")
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -1914,7 +2149,9 @@ def main() -> None:
              "latent_cem": latent_cem, "latent_refine": latent_refine,
              "metropolis_8_targets": accuracy_counts["Metropolis"],
              "estimate_batch_8_targets": accuracy_counts["batch"],
-             "service_warm_round": service_counts}
+             "service_warm_round": service_counts,
+             "unseen_demo_batches": unseen["demo"]["counts"],
+             "unseen_mid_round": unseen["mid"]["counts"]}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

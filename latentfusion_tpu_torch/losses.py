@@ -1,8 +1,7 @@
 """Reconstruction losses (counterpart of ``latentfusion_tpu/losses.py``).
 
 Not ported yet: ``lsgan_loss`` and ``multiscale_lsgan_loss`` (the
-discriminator, ROADMAP.md Queue 1 item 8) and ``PerceptualLoss`` (Queue 1
-item 5).
+discriminator, ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -66,3 +65,27 @@ def beta_prior_loss(tensor, alpha: float, beta: float, reduction="mean",
             + (beta - 1.0) * torch.log((1.0 - tensor).clamp_min(eps))
             - _log_beta(alpha, beta))
     return reduce_loss((-loss).clamp_min(0), reduction)
+
+
+class PerceptualLoss:
+    """Feature-space L2: ``features_fn(x) -> [features]`` (for example
+    ``modules.vgg.VGG16Features``) of both inputs, the per-item mean of
+    (w_act (f1 - f2))² summed over the layers by ``layer_weights``."""
+
+    def __init__(self, features_fn, layer_weights, w_act: float = 0.1, reduction="mean"):
+        self.features_fn = features_fn
+        self.layer_weights = layer_weights
+        self.w_act = w_act
+        self.reduction = reduction
+
+    def __call__(self, x1, x2):
+        feats1 = self.features_fn(x1)
+        feats2 = self.features_fn(x2)
+        loss = 0
+        for w, f1, f2 in zip(self.layer_weights, feats1, feats2):
+            f1 = f1.reshape(f1.shape[0], -1)
+            f2 = f2.reshape(f2.shape[0], -1)
+            loss += w * ((self.w_act * (f1 - f2)) ** 2).mean(dim=1)
+        if self.reduction is not None:
+            return reduce_loss(loss, self.reduction)
+        return loss

@@ -1,6 +1,7 @@
 """Pose estimation utilities (counterpart of ``latentfusion_tpu/pose/utils.py``):
 hypothesis sampling around an estimate, the optimizable camera leaves, axis
-flips, and the mask losses."""
+flips, the mask losses (IoU, masked mean, centroid shape and contour) and
+the perceptual loss."""
 from __future__ import annotations
 
 import math
@@ -88,3 +89,66 @@ def reduce_loss_mask(loss, mask, eps: float = 1e-4):
     num = (loss * mask).sum(dim=(-2, -1)).clamp_min(eps / 10)
     den = mask.sum(dim=(-2, -1)).clamp_min(eps)
     return num / den
+
+
+def _pixel_grid(height: int, width: int, device):
+    return torch.meshgrid(torch.arange(height, dtype=torch.float32, device=device),
+                          torch.arange(width, dtype=torch.float32, device=device),
+                          indexing="ij")
+
+
+def mask_centroid(mask):
+    """The (y, x) pixel centroid of each mask (..., h, w) -> (..., 2)."""
+    yy, xx = _pixel_grid(*mask.shape[-2:], mask.device)
+    den = mask.sum(dim=(-2, -1))
+    return torch.stack(((mask * yy).sum(dim=(-2, -1)) / den,
+                        (mask * xx).sum(dim=(-2, -1)) / den), dim=-1)
+
+
+def mask_contour(mask):
+    """Where the mask, thresholded at 0.5, changes between neighbouring
+    pixels: a boolean (..., h - 2, w - 2)."""
+    mask = (mask > 0.5).float()
+    yg = (mask[..., 1:, :] - mask[..., :-1, :]).abs()
+    xg = (mask[..., :, 1:] - mask[..., :, :-1]).abs()
+    return (yg[..., 1:, :-2] + xg[..., :-2, 1:]).abs() > 0
+
+
+def shape_loss(input_mask, target_mask):
+    """Per-pixel difference of the distance to each mask's centroid, both
+    over the target's largest distance, inside the input mask (N, h, w)."""
+    if input_mask.dim() == 4:
+        input_mask = input_mask.squeeze(1)
+    if target_mask.dim() == 4:
+        target_mask = target_mask.squeeze(1)
+    if target_mask.shape[0] == 1:
+        target_mask = target_mask.expand_as(input_mask)
+    n = input_mask.shape[0]
+    yx_coords = torch.stack(_pixel_grid(*input_mask.shape[-2:], input_mask.device))[None]
+    input_dtc = torch.linalg.norm(
+        yx_coords - mask_centroid(input_mask)[:, :, None, None], dim=1)
+    target_dtc = torch.linalg.norm(
+        yx_coords - mask_centroid(target_mask)[:, :, None, None], dim=1) * target_mask
+    target_maxdist = target_dtc.reshape(n, -1).amax(dim=1)[:, None, None]
+    return (input_dtc / target_maxdist - target_dtc / target_maxdist).abs() * input_mask
+
+
+def contour_loss(input_mask, target_mask):
+    """|contour length of the target - of the input| per item, masks
+    (N, 1, h, w)."""
+    input_contour = mask_contour(input_mask).float()
+    target_contour = mask_contour(target_mask).float()
+    return (target_contour.sum(dim=(1, 2, 3)) - input_contour.sum(dim=(1, 2, 3))).abs()
+
+
+def get_perceptual_loss(vgg=None, torch_state_dict=None, device="cuda"):
+    """The VGG16 perceptual loss: of a ``modules.vgg.VGG16Features``, or of
+    one on ``device`` loaded from a torchvision VGG16 ``state_dict``."""
+    from ..modules.vgg import VGG16Features, build_perceptual_loss
+
+    if vgg is None:
+        if torch_state_dict is None:
+            raise ValueError("provide vgg or torch_state_dict (torchvision VGG16)")
+        vgg = VGG16Features(device=device)
+        vgg.load_torchvision_state_dict(torch_state_dict)
+    return build_perceptual_loss(vgg)

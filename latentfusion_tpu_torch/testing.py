@@ -1,7 +1,10 @@
-"""An analytic ellipsoid renderer that stands in for ``LatentFusionModel``
-in the estimators' tests and accuracy rigs (counterpart of the ellipsoid
-half of ``latentfusion_tpu/testing.py``). Closed-form ray casting, so the
-renders are exact and differentiable with respect to the camera.
+"""Analytic objects that stand in for ``LatentFusionModel`` in the
+estimators' tests and accuracy rigs (counterpart of
+``latentfusion_tpu/testing.py``): the ellipsoid oracle, and the multi-lobe
+objects of the unseen-object rig (``sample_lobe_shapes``,
+``render_lobe_shape``, ``lobe_shape_color``, ``MultiLobeOracleModel``).
+Closed-form ray casting, so the renders are exact and differentiable with
+respect to the camera.
 
 ``render_training_batch`` renders raw training batches of random
 ellipsoids, in the layout ``recon.utils.process_batch`` takes, for training
@@ -12,6 +15,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -137,6 +141,213 @@ class EllipsoidOracleModel:
         else:
             color = mask.expand(camera.length, 3, camera.height, camera.width)
         return Observation(color, depth, (mask > 0.5).float(), camera)
+
+
+# ---------------------------------------------------------------------------
+# Multi-lobe objects: a union of L rotated ellipsoid lobes, one parameter
+# dict per object (centers (L, 3), axes (L, 3), rots (L, 3, 3) mapping the
+# object frame into each lobe's, tex_phase (3,), tex_freq (), tints (L, 3));
+# a pool stacks them along a leading axis.
+# ---------------------------------------------------------------------------
+
+def _lobe_ray_hits(o_obj, d_obj, centers, axes, rots):
+    """Intersect rays (origins ``o_obj`` (N, 1, 1, 3), directions ``d_obj``
+    (N, h, w, 3) with camera-frame z 1, so the ray parameter is the depth)
+    with the lobes. Returns (depth (N, h, w), inf at misses; the largest
+    lobe discriminant over the ray's quadratic scale, the soft mask's
+    signal; the one-hot (N, h, w, L) of the lobe hit first)."""
+    o_rel = o_obj[..., None, :] - centers
+    o_l = torch.einsum("lij,nhwlj->nhwli", rots, o_rel) / axes
+    d_l = torch.einsum("lij,nhwj->nhwli", rots, d_obj) / axes
+    a = (d_l ** 2).sum(-1)
+    b = 2.0 * (o_l * d_l).sum(-1)
+    c = (o_l ** 2).sum(-1) - 1.0
+    disc = b ** 2 - 4 * a * c
+    t_l = (-b - torch.sqrt(disc.clamp_min(1e-12))) / (2 * a)
+    t_l = torch.where((disc > 0) & (t_l > 1e-3), t_l, torch.inf)
+    t = t_l.amin(-1)
+    lobe_onehot = (t_l == t[..., None]).float()
+    disc_max = (disc / a.clamp_min(1e-8)).amax(-1)
+    return t, disc_max, lobe_onehot
+
+
+def render_lobe_shape(camera: Camera, shape: dict, size=None,
+                      mask_sharpness: float = MASK_SHARPNESS):
+    """Render a multi-lobe object at ``size`` (an int or (h, w); None for
+    the full frame). Returns (metric depth (N, 1, h, w), 0 at misses; the
+    hard mask; the soft mask's logits; the lobe one-hot (N, h, w, L))."""
+    if size is None:
+        size = (camera.height, camera.width)
+    o_obj, d_obj = _rays(camera, size)
+    t, disc_max, lobe_onehot = _lobe_ray_hits(o_obj, d_obj, shape["centers"],
+                                              shape["axes"], shape["rots"])
+    hit = torch.isfinite(t)
+    depth = torch.where(hit, t, 0.0)[:, None]
+    return depth, hit.float()[:, None], (disc_max * mask_sharpness)[:, None], lobe_onehot
+
+
+def lobe_shape_color(camera: Camera, depth, mask, lobe_onehot, shape: dict):
+    """Headlight-lit color (N, 3, h, w) of a render: the object's sinusoidal
+    texture (``tex_freq``, ``tex_phase``) of the object-frame hit point
+    times the hit lobe's tint, so both the object and its orientation show
+    in color."""
+    o_obj, d_obj = _rays(camera, tuple(depth.shape[-2:]))
+    p_obj = o_obj + d_obj * depth[:, 0][..., None]
+    # The hit lobe's implicit-surface normal: R^T ((R (p - c)) / a^2).
+    p_l = torch.einsum("lij,nhwlj->nhwli", shape["rots"], p_obj[..., None, :] - shape["centers"])
+    n_l = torch.einsum("lji,nhwlj->nhwli", shape["rots"], p_l / shape["axes"] ** 2)
+    n_obj = (n_l * lobe_onehot[..., None]).sum(-2)
+    n_obj = n_obj / torch.linalg.norm(n_obj, dim=-1, keepdim=True).clamp_min(1e-6)
+    view = -d_obj / torch.linalg.norm(d_obj, dim=-1, keepdim=True).clamp_min(1e-6)
+    lambert = (n_obj * view).sum(-1).clamp(0.0, 1.0)
+    tex = 0.55 + 0.45 * torch.sin(shape["tex_freq"] * p_obj.sum(-1)[..., None]
+                                  + shape["tex_phase"])
+    tint = (shape["tints"] * lobe_onehot[..., None]).sum(-2)
+    shade = (0.25 + 0.75 * lambert)[..., None] * tex * tint
+    return shade.permute(0, 3, 1, 2) * mask
+
+
+def _np_quat_to_mat(q):
+    """A (w, x, y, z) quaternion's rotation matrix (numpy)."""
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def _fibonacci_sphere(n: int):
+    """``n`` evenly distributed unit directions (numpy)."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([np.cos(theta) * np.sin(phi),
+                     np.sin(theta) * np.sin(phi), np.cos(phi)], axis=-1)
+
+
+def sample_lobe_shapes(seed: int, n_shapes: int, max_lobes: int = 4,
+                       n_points: int = 512, diameter: float = 1.0, device="cuda"):
+    """A pool of ``n_shapes`` multi-lobe objects drawn on the host by
+    ``np.random.default_rng(seed)``, the draws in the JAX package's order, so
+    a seed gives its pool. Each object has 2 to ``max_lobes`` active lobes
+    (inactive ones are lobe 0 shrunk inside it, so every object has
+    ``max_lobes``), is recentred at its surface centroid and scaled to
+    ``diameter``. Shape i of a seed does not depend on ``n_shapes``.
+    Returns (the stacked parameter dict of float32 tensors (K, ...) on
+    ``device``; a list of (P, 3) float32 surface point clouds for ADD-S)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    pool = {k: [] for k in ("centers", "axes", "rots", "tex_phase", "tex_freq", "tints")}
+    clouds = []
+    sphere_dirs = np.asarray(_fibonacci_sphere(max(n_points, 256)), dtype=np.float64)
+
+    for _ in range(n_shapes):
+        n_active = int(rng.integers(2, max_lobes + 1))
+        centers = np.zeros((max_lobes, 3))
+        axes = np.zeros((max_lobes, 3))
+        rots = np.zeros((max_lobes, 3, 3))
+        axes[0] = rng.uniform(0.16, 0.30, 3)
+        rots[0] = _np_quat_to_mat(rng.normal(size=4))
+        for li in range(1, n_active):
+            axes[li] = rng.uniform(0.07, 0.20, 3)
+            direction = rng.normal(size=3)
+            direction /= np.linalg.norm(direction)
+            # Near lobe 0's surface, so the union is connected.
+            reach = rng.uniform(0.55, 0.95) * axes[0].mean()
+            centers[li] = direction * reach
+            rots[li] = _np_quat_to_mat(rng.normal(size=4))
+        for li in range(n_active, max_lobes):
+            axes[li] = axes[0] * 0.5
+            rots[li] = rots[0]
+
+        # Surface points of the active lobes that lie on the union's boundary.
+        pts = []
+        for li in range(n_active):
+            p = centers[li] + (sphere_dirs * axes[li]) @ rots[li]
+            inside_other = np.zeros(len(p), dtype=bool)
+            for lj in range(n_active):
+                if lj == li:
+                    continue
+                q = ((p - centers[lj]) @ rots[lj].T) / axes[lj]
+                inside_other |= (q ** 2).sum(-1) < 0.98
+            pts.append(p[~inside_other])
+        pts = np.concatenate(pts, axis=0)
+
+        centroid = pts.mean(0)
+        pts -= centroid
+        centers -= centroid
+        d = np.sqrt(((pts[None] - pts[:, None]) ** 2).sum(-1)).max()
+        s = diameter / d
+        pts *= s
+        centers *= s
+        axes *= s
+
+        if len(pts) > n_points:
+            pts = pts[rng.choice(len(pts), n_points, replace=False)]
+        pool["centers"].append(centers)
+        pool["axes"].append(axes)
+        pool["rots"].append(rots)
+        pool["tex_phase"].append(rng.uniform(0, 2 * np.pi, 3))
+        pool["tex_freq"].append(rng.uniform(6.0, 12.0))
+        pool["tints"].append(rng.uniform(0.45, 1.0, (max_lobes, 3)))
+        clouds.append(pts.astype(np.float32))
+
+    stacked = {k: torch.from_numpy(np.stack(v).astype(np.float32)).to(device)
+               for k, v in pool.items()}
+    return stacked, clouds
+
+
+def index_lobe_shape(pool: dict, k) -> dict:
+    """Object ``k`` of a stacked pool."""
+    return {name: arr[k] for name, arr in pool.items()}
+
+
+class MultiLobeOracleModel:
+    """``EllipsoidOracleModel`` for a multi-lobe object ``shape`` (one
+    object's parameter dict): stands in for ``LatentFusionModel`` in the
+    estimators; the latent is ignored."""
+
+    def __init__(self, shape: dict, input_size: int = 128, camera_dist: float = 5.78,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.shape = {k: v.to(self.device) for k, v in shape.items()}
+        self.input_size = input_size
+        self.camera_dist = camera_dist
+
+    def decode_latent(self, z_obj, camera: Camera, return_latent: bool = True,
+                      apply_mask: bool = False):
+        """Renders at the (zoomed) cameras in ``LatentFusionModel.decode_latent``'s
+        contract: normalized depth, -1 off the object."""
+        depth_metric, mask_hard, mask_logits, _ = render_lobe_shape(
+            camera, self.shape, self.input_size)
+        depth = torch.where(mask_hard > 0.5, camera.normalize_depth(depth_metric), -1.0)
+        y = {"depth": depth[None], "mask": torch.sigmoid(mask_logits)[None],
+             "mask_logits": mask_logits[None]}
+        z_lat = (torch.zeros(1, camera.length, 1, device=camera.device)
+                 if return_latent else None)
+        return y, z_lat
+
+    def compute_latent_code(self, observation: Observation, camera: Camera) -> torch.Tensor:
+        return torch.zeros(camera.length, 1, device=camera.device)
+
+    def build_latent_object(self, observation: Observation) -> torch.Tensor:
+        return torch.zeros(1, 1, 1, 1, 1, 1, device=self.device)
+
+    def make_observation(self, camera: Camera, shaded: bool = True) -> Observation:
+        """The full-frame observation: shaded color, or the silhouette in
+        all three channels; the hard mask."""
+        return lobe_observation(self.shape, camera, shaded)
+
+
+def lobe_observation(shape: dict, camera: Camera, shaded: bool = True) -> Observation:
+    """The full-frame observation of a multi-lobe object at ``camera``."""
+    depth, mask, _, lobe_onehot = render_lobe_shape(camera, shape)
+    if shaded:
+        color = lobe_shape_color(camera, depth, mask, lobe_onehot, shape)
+    else:
+        color = mask.expand(camera.length, 3, camera.height, camera.width)
+    return Observation(color, depth, mask, camera)
 
 
 def make_camera(n: int = 1, z: float = 3.90625, f: float = 250.0,

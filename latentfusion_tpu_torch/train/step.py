@@ -6,7 +6,10 @@ top-k pixels and mask BCE (optionally a mask beta prior), Adam with betas
 
 The modules train in place: ``init_train_state`` puts them in train mode
 with their gradients on, and each step updates their parameters where they
-are (the JAX package returns new parameter trees instead).
+are (the JAX package returns new parameter trees instead). Each step runs on
+cuDNN's deterministic convolution algorithms
+(``pose.estimation.deterministic_cudnn``), so two steps from the same state
+and batch give the same bits.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md Queue 1
 item 8): the discriminator branch, ``reconstruct_input``,
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from .. import losses as L
+from ..pose import estimation
 from ..pose.estimation import _bce_with_logits
 from ..recon import models
 from ..recon.utils import mask_normalized_depth, process_batch
@@ -122,13 +126,15 @@ def _split(tree, m: int, i: int):
 def _accumulate(num_microbatches: int, loss_fn, state: TrainState):
     """Zero the gradients, add each microbatch's ``loss_fn(i)`` / M to them
     by backward, step the optimizer. Returns (total loss, the loss dicts
-    summed / M, the last microbatch's dict), detached."""
+    summed / M, the last microbatch's dict), detached. Forward and backward
+    run on cuDNN's deterministic algorithms."""
     state.optimizer.zero_grad(set_to_none=True)
     total, summed, last = 0.0, {}, {}
     for i in range(num_microbatches):
-        loss_dict = loss_fn(i)
-        loss = sum(loss_dict.values()) / num_microbatches
-        loss.backward()
+        with estimation.deterministic_cudnn():
+            loss_dict = loss_fn(i)
+            loss = sum(loss_dict.values()) / num_microbatches
+            loss.backward()
         total = total + loss.detach()
         last = {k: v.detach() for k, v in loss_dict.items()}
         for k, v in last.items():

@@ -1,7 +1,9 @@
 """Architecture constructors (counterpart of ``latentfusion_tpu/zoo.py``):
 the flagship family (256² input, 256-channel 16³ latent), the demo family
 (128² input, 128-channel 8³ latent; the committed learned checkpoints use
-it) and the tiny test family.
+it), the mid family (the flagship's widths at 128² input, a 256-channel 8³
+latent; the unseen-object rig's model-scale probe) and the tiny test
+family.
 
 Each constructor returns the module on ``device`` (default ``"cuda"``), with
 weights drawn from ``generator`` when one is given. ``canonical_camera`` and
@@ -110,6 +112,29 @@ def demo_photographer(device="cuda", generator=None) -> Photographer:
 
 def demo_fuser(device="cuda", generator=None) -> GRUFuser:
     return _place(GRUFuser(in_channels=128, cube_size=1.0), device, generator)
+
+
+MID_INPUT_SIZE = 128
+
+
+def mid_sculptor(input_depth: bool = True, device="cuda", generator=None) -> Sculptor:
+    return _place(Sculptor(
+        in_size=MID_INPUT_SIZE, image_config=SCULPTOR_IMAGE_CONFIG,
+        camera_config=SCULPTOR_CAMERA_CONFIG, object_config=SCULPTOR_OBJECT_CONFIG,
+        projection_type="factor", cube_size=1.0, scale_mode="nearest",
+        input_color=True, input_depth=input_depth, input_mask=True), device, generator)
+
+
+def mid_fuser(device="cuda", generator=None) -> GRUFuser:
+    return _place(GRUFuser(in_channels=256, cube_size=1.0), device, generator)
+
+
+def mid_photographer(device="cuda", generator=None) -> Photographer:
+    return _place(Photographer(
+        in_size=MID_INPUT_SIZE // 16, image_config=PHOTOGRAPHER_IMAGE_CONFIG,
+        camera_config=PHOTOGRAPHER_CAMERA_CONFIG, object_config=None,
+        projection_type="factor", predict_color=False, predict_depth=True,
+        predict_mask=True, cube_size=1.0, scale_mode="nearest"), device, generator)
 
 
 def tiny_sculptor(input_size: int = 16, device="cuda", generator=None) -> Sculptor:

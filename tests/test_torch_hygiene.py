@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"latentfusion_tpu_torch/losses.py",
-            "latentfusion_tpu_torch/train/step.py"} <= names
+            "latentfusion_tpu_torch/train/step.py",
+            "latentfusion_tpu_torch/unseen_eval.py",
+            "latentfusion_tpu_torch/functional.py",
+            "latentfusion_tpu_torch/modules/vgg.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -120,3 +123,21 @@ def test_kernel_wrappers_refuse_other_devices():
                                             vol.shape)
     with pytest.raises(ValueError, match="unsupported device"):
         lrelu_pnorm.lrelu_pixel_norm_fwd(torch.zeros(2, 4, 3, device="meta"), 0.2, 1e-8)
+
+
+def test_unseen_object_entry_points_raise_without_gpu(no_gpu):
+    from latentfusion_tpu_torch import testing, unseen_eval
+    from latentfusion_tpu_torch.modules import vgg
+    from latentfusion_tpu_torch.pose import utils as pose_utils
+
+    pool, _ = testing.sample_lobe_shapes(0, 1, device="cpu")
+    shape = testing.index_lobe_shape(pool, 0)
+    for make in (lambda: testing.sample_lobe_shapes(0, 1),
+                 lambda: testing.MultiLobeOracleModel(shape),
+                 unseen_eval.load_cameras, zoo.mid_sculptor, zoo.mid_fuser,
+                 zoo.mid_photographer, vgg.VGG16Features,
+                 lambda: pose_utils.get_perceptual_loss(torch_state_dict={})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert testing.MultiLobeOracleModel(shape, device="cpu").device.type == "cpu"
+    assert unseen_eval.load_cameras(2, 1, device="cpu")[0].device.type == "cpu"

@@ -9,6 +9,7 @@ Tolerances (fp32): 1e-5 for ops and exact where the arithmetic is the same;
 quantities near 600); 5e-4 for networks. Comparisons are relative to the
 reference's largest magnitude, or to 1 where that is smaller.
 """
+import json
 import math
 from pathlib import Path
 
@@ -577,6 +578,62 @@ def test_rig_target_refinement_from_jax_coarse_poses_matches_jax(rig):
     print("coarse", {k: float(mc[k]) for k in keys}, "refined JAX",
           {k: float(mj[k]) for k in keys}, "port", {k: float(mt[k]) for k in keys},
           "steps", st["num_steps"])
+    assert abs(float(mt["add_s"]) - float(mj["add_s"])) <= 0.01 * 2 * max(RIG_AXES)
+    assert abs(float(mt["translation_dist"]) - float(mj["translation_dist"])) <= 0.02
+
+
+METROPOLIS_MISS = Path(__file__).with_name("metropolis_miss_seed0_target2.json")
+
+
+def _j_camera(rec) -> JCamera:
+    return JCamera(np.asarray(rec["intrinsic"], np.float32),
+                   np.asarray(rec["extrinsic"], np.float32), rec["z_span"],
+                   np.asarray(rec["viewport"], np.float32), width=rec["width"],
+                   height=rec["height"])
+
+
+@pytest.mark.slow
+def test_metropolis_miss_refinement_from_recorded_coarse_poses_matches_jax(rig):
+    """chip_smoke.py phase 6's Metropolis target 2 at seed 0, which
+    refinement took out of 0.1d on the H100: the rig's reference views, the
+    target and the 16 coarse cameras as phase 6 printed them
+    (``METROPOLIS_MISS``), refined in JAX and in the port, each from its own
+    latent of the same views. After 5 steps the best poses agree at 2e-4.
+    After the rig's 150 steps the refined best poses fall on the same side
+    of 0.1d. Both are out of it, so the miss is the method's: JAX ends at
+    ADD-S 0.3733 and the port at
+    0.3651 (translations 0.0124 apart: two fp32 loops part slowly over 150
+    steps, so the bounds are the demo rig test's above, 1 % of the diameter
+    in ADD-S and 0.02 in translation). About 25 minutes on 8 CPU cores."""
+    rec = json.loads(METROPOLIS_MISS.read_text())
+    ref, gt, coarse = (_j_camera(rec[k]) for k in ("reference", "target", "coarse"))
+    oracle = jtesting.EllipsoidOracleModel(jzoo.DEMO_INPUT_SIZE, jzoo.DEMO_CAMERA_DIST,
+                                           RIG_AXES)
+    ref_obs = jax.jit(lambda c: oracle.make_observation(c, shaded=True))(ref)
+    target = jax.jit(oracle.make_observation)(gt)
+    jz = rig["jm"].build_latent_object(ref_obs)
+    tz = rig["tm"].build_latent_object(t_observation(ref_obs))
+    close_rel(tz, np.asarray(jz), NET_TOL)
+    ttarget = t_observation(target)
+    rj, rt = _rig_refiners(rig, num_iters=5)
+    bj, _ = rj.estimate(jz, target, camera=coarse)
+    bt, _ = rt.estimate(tz, ttarget, camera=t_camera(coarse))
+    for field in ("translation", "log_quaternion"):
+        close_rel(getattr(bt[0], field), getattr(bj[0], field), GEOM_TOL)
+    rj, rt = _rig_refiners(rig)
+    bj, sj = rj.estimate(jz, target, camera=coarse)
+    bt, st = rt.estimate(tz, ttarget, camera=t_camera(coarse))
+    points = (np.asarray(jorientation.evenly_distributed_points(512))
+              * np.asarray(RIG_AXES, np.float32))
+    keys = ("add_s", "rotation_dist", "translation_dist")
+    mj = jmetrics.camera_metrics(gt, bj[0], jnp.asarray(points), scale_to_meters=1.0)
+    mt = tmetrics.camera_metrics(t_camera(gt), bt[0], t(points), 1.0)
+    mc = jmetrics.camera_metrics(gt, coarse[0], jnp.asarray(points), scale_to_meters=1.0)
+    print("coarse", {k: float(mc[k]) for k in keys}, "refined JAX",
+          {k: float(mj[k]) for k in keys}, int(sj["num_steps"]), "steps; port",
+          {k: float(mt[k]) for k in keys}, st["num_steps"], "steps")
+    threshold = 0.1 * 2 * max(RIG_AXES)
+    assert (float(mt["add_s"]) < threshold) == (float(mj["add_s"]) < threshold)
     assert abs(float(mt["add_s"]) - float(mj["add_s"])) <= 0.01 * 2 * max(RIG_AXES)
     assert abs(float(mt["translation_dist"]) - float(mj["translation_dist"])) <= 0.02
 

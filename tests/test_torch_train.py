@@ -383,6 +383,50 @@ def test_recon_train_step_draws_orientation_from_generator(tiny_family):
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
+CUDNN_FLAGS = ("deterministic", "enabled", "benchmark", "allow_tf32")
+
+
+@pytest.mark.parametrize("flags", [(False, True, False, True), (True, False, True, False)],
+                         ids=["torch_defaults", "all_flipped"])
+def test_recon_train_step_selects_deterministic_cudnn_and_restores_flags(tiny_family,
+                                                                         flags):
+    """Each microbatch's forward and backward run with cuDNN's deterministic
+    algorithms selected and its other flags as the caller set them; after
+    the step, and after a step that raises, the flags are as the caller
+    left them."""
+    _, params = tiny_family
+    batch, _ = raw_batch(14)
+    rotations = [torch.tensor([[1.0, 0.0, 0.0, 0.0]])] * 2
+    mods = port_models(params)
+    state = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
+    step = tstep.make_recon_train_step(mods["sculptor"], mods["fuser"], mods["photographer"],
+                                       config=CONFIG, num_microbatches=2)
+    seen = []
+    forward = mods["photographer"].forward
+
+    def spy(*args, **kwargs):
+        seen.append(tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS))
+        return forward(*args, **kwargs)
+
+    prev = {k: getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS}
+    try:
+        for k, v in zip(CUDNN_FLAGS, flags):
+            setattr(torch.backends.cudnn, k, v)
+        mods["photographer"].forward = spy
+        _, scalars = step(state, batch, rotations=rotations)
+        after = tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS)
+        mods["photographer"].forward = lambda *a, **kw: 1 / 0
+        with pytest.raises(ZeroDivisionError):
+            step(state, batch, rotations=rotations)
+        after_raise = tuple(getattr(torch.backends.cudnn, k) for k in CUDNN_FLAGS)
+    finally:
+        for k, v in prev.items():
+            setattr(torch.backends.cudnn, k, v)
+    assert seen == [(True, *flags[1:])] * 2
+    assert np.isfinite(float(scalars["loss/generator/total"]))
+    assert after == after_raise == flags
+
+
 def test_train_step_matches_jax(tiny_family):
     """The plain generator step (make_train_step) on a processed batch, two
     microbatches: loss, loss terms, every gradient and every parameter."""
