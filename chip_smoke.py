@@ -108,10 +108,25 @@ line after it ends:
    from --seed, for time, memory and launches. ``--unseen-latent-rank``
    adds an ungated pass with the latent ranking term at 0.2;
    ``--with-unseen`` runs this rig, ungated, at each of --accuracy-seeds.
+10. reconstruction: the demo family with the learned weights on 16 shaded
+   reference views and 8 targets of the ellipsoid oracle, whose cameras
+   and JAX fp32 results are latentfusion_tpu_torch/recon_cameras.json. The
+   views go through ``Observation.save`` and ``load`` (the loaded arrays
+   must be the quantised ones, bit for bit); then the latent,
+   ``render_full`` at the targets, ``render_ibr_basic``, ``render_full``
+   with ``input_obs`` and ``render_ibr`` with the published generator
+   config (tools/train_ibr.py, N(0, 1) weights from --seed). The launch
+   counters must show K1-fwd and K2-fwd; the pass must agree with the same
+   pass on the plain versions (5e-4, masked colors and depth where both
+   masks agree, flips at most 0.1 % of the pixels); each target's sums of
+   depth, mask and color must agree with JAX's record (SUMS_TOL); the mask
+   IoU and depth error against the truth are printed beside JAX's, with
+   ``estimate_camera``'s translation error, ms and peak memory per call of
+   8 targets and one ``render_ibr`` profiled by op (time and memory).
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phase 10's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -158,6 +173,10 @@ FLOOR_EPS = (1e-7, 4e-7)
 FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
 ORACLE_AXES = (0.21, 0.36, 0.5)  # tools/train_encoder_distill.py's ellipsoid
 ORACLE_DIAMETER = 2 * max(ORACLE_AXES)
+RECON_CAMERAS = ROOT / "latentfusion_tpu_torch" / "recon_cameras.json"
+# The IBR generator's published block config (tools/train_ibr.py:32).
+RECON_GENERATOR_CONFIG = ((64, "D", 128, "D", 256, "D", 512),
+                          (512, "U", 256, "U", 128, "U", 64))
 # The published recipe (tools/train_reconstruct.py): global batch 8 in 2
 # microbatches, 8 input and 24 output views, 640x480 renders.
 TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
@@ -2018,6 +2037,205 @@ def bwd_vol_in_step(fused_sample, run_step, steps: int = 4) -> None:
         f"{mean['atomic'] - mean['tiled']:.1f} ms; turns tiled, atomic, atomic, tiled, "
         f"{steps} steps each, CUDA events: {json.dumps({k: [round(t, 1) for t in v] for k, v in times.items()})})")
 
+def recon_inputs(device):
+    """Phase 10's record (``recon_cameras.json``), its 16 reference and 8
+    target cameras, the oracle, the shaded reference views and the targets'
+    true depth and mask."""
+    from latentfusion_tpu_torch import testing, zoo
+    from latentfusion_tpu_torch.camera import Camera
+
+    rec = json.loads(RECON_CAMERAS.read_text())
+    K = torch.tensor(rec["intrinsic"])
+
+    def cameras(part):
+        ext = torch.tensor(rec[part]["extrinsic"])
+        return Camera(K.expand(len(ext), 3, 3), ext, z_span=0.5, width=640, height=480,
+                      device=device)
+
+    oracle = testing.EllipsoidOracleModel(zoo.DEMO_INPUT_SIZE, zoo.DEMO_CAMERA_DIST,
+                                          tuple(rec["oracle_axes"]), device=device)
+    refs, targets = cameras("reference"), cameras("targets")
+    return rec, oracle.make_observation(refs, shaded=True), targets, \
+        oracle.make_observation(targets)
+
+
+def png_round_trip(obs):
+    """Save ``obs`` with ``Observation.save``, load it back, and fail unless
+    the loaded arrays are the saved ones after the codec's quantisation
+    (color ``uint8(255 c) / 255``, depth ``uint16(1000 d) / 1000``, mask
+    ``d > 0.5``), bit for bit, and the cameras agree within 1e-6."""
+    import tempfile
+
+    from latentfusion_tpu_torch.observation import Observation
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        obs.save(tmp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = Observation.load(tmp, device=obs.color.device)
+        load_s = time.perf_counter() - t0
+    want = {"color": (255.0 * obs.color.cpu().numpy()).astype(np.uint8).astype(np.float32) / 255.0,
+            "depth": (1000.0 * obs.depth.cpu().numpy()).astype(np.uint16).astype(np.float32)
+            / 1000.0,
+            "mask": (obs.mask.cpu().numpy() > 0.5).astype(np.float32)}
+    exact = {k: bool(np.array_equal(getattr(loaded, k).cpu().numpy(), v))
+             for k, v in want.items()}
+    cam_err = max(rel_err(getattr(loaded.camera, k), getattr(obs.camera, k))
+                  for k in ("intrinsic", "viewport", "log_quaternion", "translation"))
+    say(f"  Observation.save + load of {len(obs)} views of 640x480: {save_s:.2f} s + "
+        f"{load_s:.2f} s; arrays the quantised ones bit for bit {json.dumps(exact)}; "
+        f"cameras within {cam_err:.2e} (tol 1e-6)")
+    if not (all(exact.values()) and cam_err <= 1e-6):
+        fail("reconstruction: Observation.load does not give back what save wrote")
+    return loaded
+
+
+def recon_pass(model, ibr_model, refs, targets) -> dict:
+    """The reconstruction API on phase 10's inputs: the latent of ``refs``,
+    ``render_full`` at the targets, ``render_ibr_basic`` at the zoomed
+    targets, ``render_full`` with ``input_obs``, ``render_ibr`` with the
+    generator of ``ibr_model``."""
+    z = model.build_latent_object(refs)
+    zoom = targets.zoom(None, model.input_size, model.camera_dist)
+    basic, _ = model.render_ibr_basic(z, refs, zoom, return_latent=False)
+    learned, _ = ibr_model.render_ibr(z, refs, zoom, return_latent=False)
+    return {"latent": z, "full": model.render_full(z, targets),
+            "full_ibr": model.render_full(z, targets, input_obs=refs),
+            "basic": basic, "learned": learned}
+
+
+def recon_against_plain(out, ref) -> dict:
+    """The kernel path's outputs against the plain path's: the latent, the
+    full-frame mask, and the learned IBR color whole; the depth and colors
+    that the mask's 0.5 threshold gates on the pixels where both masks fall
+    on the same side, with the share of the other pixels (flips)."""
+    errs = {"latent": rel_err(out["latent"], ref["latent"]),
+            "full mask": rel_err(out["full"]["mask"], ref["full"]["mask"]),
+            "render_ibr color": rel_err(out["learned"]["color"], ref["learned"]["color"])}
+    same = (out["full"]["mask"] > 0.5) == (ref["full"]["mask"] > 0.5)
+    same_zoom = (out["basic"]["mask"][0] > 0.5) == (ref["basic"]["mask"][0] > 0.5)
+    for name, a, b, keep in (("full depth", out["full"]["depth"], ref["full"]["depth"], same),
+                             ("full ibr color", out["full_ibr"]["color"],
+                              ref["full_ibr"]["color"], same),
+                             ("ibr_basic color", out["basic"]["color"], ref["basic"]["color"],
+                              same_zoom)):
+        errs[name] = rel_err(a * keep, b * keep)
+    flips = max(float((~same).float().mean()), float((~same_zoom).float().mean()))
+    return errs, flips
+
+
+def recon_sums(out, truth) -> list:
+    """Per target: the sums phase 10's record holds, and the mask IoU and
+    mean depth error inside both masks against the truth."""
+    rows = []
+    for i in range(len(truth)):
+        pred = out["full"]["mask"][i, 0] > 0.5
+        true = truth.mask[i, 0] > 0.5
+        both = pred & true
+        depth = out["full"]["depth"][i, 0].double()
+        basic = out["basic"]["color"][i].double()
+        rows.append({
+            "depth": float(depth.sum()), "mask": float(out["full"]["mask"][i].double().sum()),
+            "color_ibr_basic": float(basic.sum()), "color_ibr_basic_abs": float(basic.abs().sum()),
+            "color_full": float(out["full_ibr"]["color"][i].double().sum()),
+            "iou": float(both.sum() / (pred | true).sum().clamp_min(1)),
+            "depth_err": float((depth - truth.depth[i, 0].double()).abs()[both].mean())})
+    return rows
+
+
+def phase_recon(model, kernels, seed) -> dict:
+    """The reconstruction API at the demo family with the learned weights
+    (``render_full``, ``render_ibr_basic``, ``render_full`` with
+    ``input_obs``, ``render_ibr``) on phase 10's inputs. Returns the launch
+    counts of one pass."""
+    from latentfusion_tpu_torch import modules, transforms, zoo
+    from latentfusion_tpu_torch.modules.unet import UNet2d
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    dev = model.device
+    rec, refs, targets, truth = recon_inputs(dev)
+    loaded = png_round_trip(refs)
+    del refs
+    views = len(loaded)
+    generator = zoo.init_weights_(UNet2d(1 + 5 * views, (views,) * 3, RECON_GENERATOR_CONFIG),
+                                  torch.Generator().manual_seed(seed))
+    ibr_model = LatentFusionModel(model.sculptor, None, model.fuser, None,
+                                  model.photographer, None, camera_dist=model.camera_dist,
+                                  device=dev, generator=generator)
+
+    reset_counters(kernels)
+    out = recon_pass(model, ibr_model, loaded, targets)
+    torch.cuda.synchronize()
+    counts = read_counters(kernels)
+    if not (counts["K1"] > 0 and counts["K2"] > 0):
+        fail(f"reconstruction: a kernel was not launched: {counts}")
+    for key, shape in (("depth", (8, 1, 480, 640)), ("mask", (8, 1, 480, 640))):
+        if tuple(out["full"][key].shape) != shape or not bool(torch.isfinite(out["full"][key]).all()):
+            fail(f"reconstruction: render_full {key} {tuple(out['full'][key].shape)}")
+    if (tuple(out["full_ibr"]["color"].shape) != (8, 3, 480, 640)
+            or tuple(out["learned"]["color"].shape) != (8, 3, 128, 128)
+            or not bool(torch.isfinite(out["learned"]["color"]).all())):
+        fail("reconstruction: the IBR colors have the wrong shape or are not finite")
+
+    with transforms.volume_sample_backend("torch"), modules.lrelu_pnorm_backend("torch"):
+        ref = recon_pass(model, ibr_model, loaded, targets)
+    errs, flips = recon_against_plain(out, ref)
+    say(f"  kernels vs plain rel err {json.dumps(errs)} (tol {NET_TOL}), mask 0.5 flips "
+        f"{flips:.2e} of the pixels (tol {SUMS_TOL}); launches {json.dumps(counts)}")
+    if not (max(errs.values()) <= NET_TOL and flips <= SUMS_TOL):
+        fail("reconstruction: the kernel path disagrees with the plain path")
+    del ref
+
+    got = recon_sums(out, truth)
+    pixels = 640 * 480
+    worst = {"depth": 0.0, "mask": 0.0, "color_ibr_basic": 0.0, "color_full": 0.0}
+    for g, want in zip(got, rec["jax_float32"]):
+        worst["depth"] = max(worst["depth"], abs(g["depth"] - want["depth"]) / abs(want["depth"]))
+        worst["mask"] = max(worst["mask"], abs(g["mask"] - want["mask"]) / pixels)
+        worst["color_ibr_basic"] = max(worst["color_ibr_basic"], abs(
+            g["color_ibr_basic"] - want["color_ibr_basic"]) / want["color_ibr_basic_abs"])
+        worst["color_full"] = max(worst["color_full"], abs(
+            g["color_full"] - want["color_full"]) / abs(want["color_full"]))
+    say(f"  per-target sums against JAX's fp32 record, largest difference (depth and "
+        f"color relative, the basic IBR color to its sum of magnitudes, mask over the "
+        f"frame's pixels): {json.dumps(worst)} (tol {SUMS_TOL})")
+    say(f"  mask IoU by target {json.dumps([round(g['iou'], 4) for g in got])} "
+        f"(JAX {json.dumps([round(w['iou'], 4) for w in rec['jax_float32']])}); mean depth "
+        f"error inside both masks {json.dumps([round(g['depth_err'], 5) for g in got])} "
+        f"(JAX {json.dumps([round(w['depth_err'], 5) for w in rec['jax_float32']])})")
+    if not max(worst.values()) <= SUMS_TOL:
+        fail("reconstruction: the per-target sums disagree with JAX's record")
+
+    estimated = truth.estimate_camera()
+    trans_err = torch.linalg.norm(estimated.translation - targets.translation, dim=1)
+    say(f"  estimate_camera on each target: translation error "
+        f"{json.dumps([round(float(x), 5) for x in trans_err])} (object diameter "
+        f"{2 * max(rec['oracle_axes'])})")
+
+    z = out["latent"]
+    zoom = targets.zoom(None, model.input_size, model.camera_dist)
+    timings = {}
+    for name, fn in (("render_full of 8", lambda: model.render_full(z, targets)),
+                     ("render_ibr_basic of 8", lambda: model.render_ibr_basic(
+                         z, loaded, zoom, return_latent=False)),
+                     ("render_ibr of 8", lambda: ibr_model.render_ibr(
+                         z, loaded, zoom, return_latent=False))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = event_ms(fn, iters=3, warmup=1)
+        timings[name] = {"ms": round(ms, 2),
+                         "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+    say(f"  ms and peak memory: {json.dumps(timings)}")
+    # One render_ibr by op: device time and the memory each op allocates.
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities, profile_memory=True) as prof:
+        ibr_model.render_ibr(z, loaded, zoom, return_latent=False)
+        torch.cuda.synchronize()
+    say(prof.key_averages().table(sort_by="self_cuda_memory_usage", row_limit=10))
+    del out, loaded, ibr_model
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2052,16 +2270,20 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/9: device, kernel build, reference views")
+    say("== phase 1/10: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
     state = split_state_dict(from_jax_params(load_params_npz(
         DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
-    demo = LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
-                             zoo.demo_fuser(), state["fuser"],
-                             zoo.demo_photographer(), state["photographer"],
-                             camera_dist=zoo.DEMO_CAMERA_DIST)
+
+    def demo_model():
+        return LatentFusionModel(zoo.demo_sculptor(), state["sculptor"],
+                                 zoo.demo_fuser(), state["fuser"],
+                                 zoo.demo_photographer(), state["photographer"],
+                                 camera_dist=zoo.DEMO_CAMERA_DIST)
+
+    demo = demo_model()
     if args.accuracy_seeds is not None:
         table = {}
         for seed in args.accuracy_seeds:
@@ -2077,7 +2299,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/9: kernels against their plain versions")
+    say("== phase 2/10: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -2092,7 +2314,7 @@ def main() -> None:
     say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
     say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
 
-    say(f"== phase 3/9: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/10: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -2102,12 +2324,12 @@ def main() -> None:
                          profile=True)
     say(f"   flagship launches per object: {json.dumps(counts)}")
 
-    say(f"== phase 4/9: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/10: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/9: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/10: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -2118,30 +2340,37 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/9: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/10: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "CEM, Metropolis, estimate_batch")
     accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/9: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/10: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/9: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/10: the pose service at flagship width, two rounds of requests")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round: {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/9: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/10: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
     say(f"   unseen objects: {sum(unseen['demo']['hits'])} of "
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
+
+    say("== phase 10/10: the reconstruction API, demo family, learned weights: 16 oracle "
+        "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
+    t10 = time.perf_counter()
+    recon_counts = phase_recon(demo_model(), kernels, args.seed)
+    say(f"   reconstruction launches: {json.dumps(recon_counts)}; phase 10 took "
+        f"{time.perf_counter() - t10:.1f} s on {smi}")
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -2151,7 +2380,8 @@ def main() -> None:
              "estimate_batch_8_targets": accuracy_counts["batch"],
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
-             "unseen_mid_round": unseen["mid"]["counts"]}
+             "unseen_mid_round": unseen["mid"]["counts"],
+             "reconstruction": recon_counts}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

@@ -17,6 +17,23 @@ from .ops.affine_resample import bbox_source_coords, separable_resample_2d
 from .three import quaternion as quat
 
 
+def bbox_to_grid(bbox: torch.Tensor, in_size, out_size) -> torch.Tensor:
+    """``grid_sample`` grid (out_h, out_w, 2) that crops one pixel-space box
+    (xmin, ymin, xmax, ymax) of an ``in_size`` (h, w) image. The corners are
+    truncated toward zero, as the original TorchScript function did."""
+    h, w = in_size
+    xmin, ymin, xmax, ymax = torch.trunc(bbox).unbind(-1)
+    gy = three.linspace(ymin / h, ymax / h, out_size[0]) * 2 - 1
+    gx = three.linspace(xmin / w, xmax / w, out_size[1]) * 2 - 1
+    grid_y, grid_x = torch.meshgrid(gy, gx, indexing="ij")
+    return torch.stack((grid_x, grid_y), dim=-1)
+
+
+def bboxes_to_grid(boxes: torch.Tensor, in_size, out_size) -> torch.Tensor:
+    """``bbox_to_grid`` of each of (N, 4) boxes: (N, out_h, out_w, 2)."""
+    return torch.stack([bbox_to_grid(b, in_size, out_size) for b in boxes])
+
+
 def _as_tensor(value, device) -> torch.Tensor:
     """fp32 tensor on ``device``. A tensor that already is one is returned
     as it is, so a pose leaf that requires a gradient stays in the graph."""
@@ -158,6 +175,12 @@ class Camera:
         return self.viewport[:, 2] - self.viewport[:, 0]
 
     @property
+    def viewport_centroid(self):
+        cx = (self.viewport[:, 2] + self.viewport[:, 0]) / 2.0
+        cy = (self.viewport[:, 3] + self.viewport[:, 1]) / 2.0
+        return torch.stack((cx, cy), dim=-1)
+
+    @property
     def u0(self):
         return self.intrinsic[:, 0, 2]
 
@@ -174,6 +197,14 @@ class Camera:
         return self.intrinsic[:, 1, 1]
 
     @property
+    def fov_u(self):
+        return torch.atan2(self.fu, self.viewport_width / 2.0)
+
+    @property
+    def fov_v(self):
+        return torch.atan2(self.fv, self.viewport_height / 2.0)
+
+    @property
     def znear(self):
         return self.translation[:, 2] - self.z_span
 
@@ -181,7 +212,21 @@ class Camera:
     def zfar(self):
         return self.translation[:, 2] + self.z_span
 
+    @property
+    def z_bounds(self):
+        return self.znear, self.zfar
+
     # ------------------------------------------------------------- pose edits
+    def with_extrinsic(self, extrinsic) -> "Camera":
+        """The camera with the pose of ``extrinsic`` (B, 4, 4) or (4, 4)."""
+        extrinsic = _as_tensor(extrinsic, self.device)
+        if extrinsic.dim() == 2:
+            extrinsic = extrinsic[None]
+        rotation, translation = three.decompose(extrinsic)
+        quaternion = quat.mat_to_quat(rotation[:, :3, :3])
+        return self.replace(log_quaternion=quat.qlog(quaternion)[:, 1:],
+                            translation=translation[:, :3, -1])
+
     def with_quaternion(self, q) -> "Camera":
         return self.replace(log_quaternion=quat.qlog(q)[:, 1:])
 
@@ -222,6 +267,12 @@ class Camera:
                  / (self.viewport_width * scale)[:, None] * w_img - 0.5)
         return (separable_resample_2d(image, src_y, src_x, mode=scale_mode,
                                       padding_mode="border"), new_cam)
+
+    def crop_to_viewport(self, image, target_size: int, scale_mode: str = "nearest"):
+        """Crop each image (N, C, H, W) to its viewport, resized to
+        ``target_size``²."""
+        src_y, src_x = bbox_source_coords(self.viewport, target_size)
+        return separable_resample_2d(image, src_y, src_x, mode=scale_mode)
 
     def zoom(self, image, target_size: int, target_dist, target_fu=None,
              target_fv=None, image_scale: float = 1.0, zs=None,
@@ -294,6 +345,22 @@ class Camera:
         x_cam = (u_pixel - self.u0.reshape(-1, 1, 1, 1)) / self.fu.reshape(-1, 1, 1, 1) * z_cam
         return x_cam, y_cam, z_cam
 
+    def depth_camera_coords(self, depth):
+        """Back-project depth maps (B, 1, h, w) over the viewport: camera
+        frame (x, y, z), each (B, h, w)."""
+        u_pixel, v_pixel = self.pixel_coords_uv((depth.shape[-2], depth.shape[-1]))
+        z_cam = depth.reshape(u_pixel.shape)
+        x_cam = (u_pixel - self.u0.reshape(-1, 1, 1)) / self.fu.reshape(-1, 1, 1) * z_cam
+        y_cam = (v_pixel - self.v0.reshape(-1, 1, 1)) / self.fv.reshape(-1, 1, 1) * z_cam
+        return x_cam, y_cam, z_cam
+
+    def depth_object_coords(self, depth):
+        """``depth_camera_coords`` in the object frame."""
+        cam_grid = torch.stack(self.depth_camera_coords(depth), dim=-1)
+        obj = three.transform_coords(three.grid_to_coords(cam_grid), self.cam_to_obj)
+        obj = obj.reshape(cam_grid.shape)
+        return obj[..., 0], obj[..., 1], obj[..., 2]
+
     # ----------------------------------------------------------- depth window
     def denormalize_depth(self, depth, eps: float = 0.01):
         """[-1, 1] window depth -> metric depth."""
@@ -328,6 +395,30 @@ class Camera:
                       log_quaternion=self.log_quaternion[item],
                       translation=self.translation[item], device=self.device)
 
+    def split(self, sections):
+        """Consecutive cameras in groups: ``sections`` is a list of group
+        sizes, or one size (the remainder beyond whole groups is dropped)."""
+        if isinstance(sections, int):
+            sections = [sections] * (self.length // sections)
+        out, start = [], 0
+        for s in sections:
+            out.append(self[start:start + s])
+            start += s
+        return out
+
+    @classmethod
+    def vcat(cls, cameras: Sequence["Camera"], batch_size: int = -1) -> "Camera":
+        """Concatenate batch-folded cameras along their view dim."""
+        first = cameras[0]
+
+        def cat(name):
+            return three.vcat([getattr(c, name) for c in cameras], batch_size)
+
+        return cls(cat("intrinsic"), None, first.z_span, cat("viewport"),
+                   width=first.width, height=first.height,
+                   log_quaternion=cat("log_quaternion"),
+                   translation=cat("translation"), device=first.device)
+
     def repeat(self, n: int) -> "Camera":
         return self._new(intrinsic=self.intrinsic.repeat(n, 1, 1),
                          viewport=self.viewport.repeat(n, 1),
@@ -340,6 +431,26 @@ class Camera:
                          viewport=self.viewport.repeat_interleave(n, dim=0),
                          log_quaternion=self.log_quaternion.repeat_interleave(n, dim=0),
                          translation=self.translation.repeat_interleave(n, dim=0))
+
+    def clone(self) -> "Camera":
+        return self.replace(**{name: getattr(self, name).clone()
+                               for name in self._REPLACE_FIELDS[:4]})
+
+    def detach(self) -> "Camera":
+        return self.replace(**{name: getattr(self, name).detach()
+                               for name in self._REPLACE_FIELDS[:4]})
+
+    # ------------------------------------------------------------------- io
+    def to_kwargs(self) -> dict:
+        """Constructor arguments (tensors, and the pose as an extrinsic)."""
+        return {"intrinsic": self.intrinsic, "extrinsic": self.extrinsic,
+                "z_span": self.z_span, "viewport": self.viewport,
+                "height": self.height, "width": self.width}
+
+    @classmethod
+    def from_kwargs(cls, kwargs, device="cuda") -> "Camera":
+        """A camera from ``to_kwargs``' dict, lists allowed for tensors."""
+        return cls(**kwargs, device=device)
 
     def __repr__(self):
         return f"Camera(count={self.length}, device={self.device})"

@@ -93,3 +93,14 @@ class BaseUNet(nn.Module):
                 z = interpolate(z, scale_factor=self.final_scale[0],
                                 mode=self.final_scale[1])
         return z
+
+
+class UNet2d(BaseUNet):
+    """A 2D U-Net with its own input block and output heads, as the IBR
+    generator is: ``UNet2d(in_channels, out_channels, block_config)``, with
+    ``out_channels`` an int or a list of head widths."""
+
+    def __init__(self, in_channels: Optional[int],
+                 out_channels: Union[None, int, Sequence[int]],
+                 block_config: Any):
+        super().__init__(in_channels, out_channels, block_config, ndim=2)

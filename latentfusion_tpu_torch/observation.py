@@ -3,12 +3,19 @@
 
 An Observation bundles color (B, 3, H, W), depth (B, 1, H, W), mask
 (B, 1, H, W), a Camera, and the ``is_zoomed / is_prepared / is_normalized``
-flags that gate preprocessing.
+flags that gate preprocessing. ``save`` and ``load`` keep the JAX package's
+directory layout (``cameras.json`` and ``NNNN.{color,depth,mask}.png``)
+through the port's own PNG codec (``png.py``).
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
+import numpy as np
 import torch
 
+from . import imutils, png
 from .augment import gan_denormalize, gan_normalize
 from .camera import Camera
 
@@ -64,6 +71,13 @@ class Observation:
         return self._with(self.color[item], self.depth[item], self.mask[item],
                           self.camera[item])
 
+    def clone(self) -> "Observation":
+        return self._with(self.color.clone(), self.depth.clone(),
+                          self.mask.clone(), self.camera.clone())
+
+    def to_list(self) -> list:
+        return [self[i] for i in range(len(self))]
+
     def expand(self, n: int) -> "Observation":
         """A single frame repeated ``n`` times."""
         if len(self) > 1:
@@ -72,6 +86,56 @@ class Observation:
                           self.depth.expand(n, *self.depth.shape[1:]),
                           self.mask.expand(n, *self.mask.shape[1:]),
                           self.camera.repeat(n))
+
+    # --------------------------------------------------------------- disk I/O
+    def save(self, path) -> None:
+        """``cameras.json`` (the camera's ``to_kwargs`` and the flags) and
+        per frame an 8-bit RGB color PNG (``255 c`` truncated), a 16-bit
+        depth PNG in millimetres (truncated) and an 8-bit mask PNG (255
+        where the mask exceeds 0.5)."""
+        path = Path(path)
+        path.mkdir(exist_ok=True, parents=True)
+        camera_json = {k: (v.tolist() if torch.is_tensor(v) else v)
+                       for k, v in self.camera.to_kwargs().items()}
+        camera_json["meta"] = self.meta
+        with open(path / "cameras.json", "w") as f:
+            json.dump(camera_json, f, indent=2)
+        color = self.color.detach().cpu().numpy()
+        depth = self.depth.detach().cpu().numpy()
+        mask = self.mask.detach().cpu().numpy()
+        for i in range(len(self)):
+            png.write_png(path / f"{i:04d}.color.png",
+                          (255.0 * color[i].transpose(1, 2, 0)).astype(np.uint8))
+            png.write_png(path / f"{i:04d}.depth.png",
+                          (1000.0 * depth[i][0]).astype(np.uint16))
+            png.write_png(path / f"{i:04d}.mask.png",
+                          (mask[i][0] > 0.5).astype(np.uint8) * 255)
+
+    @classmethod
+    def load(cls, path, frames=None, device="cuda") -> "Observation":
+        """What ``save`` (of this package or the JAX package) wrote: all
+        frames, one (an int) or a list of them."""
+        path = Path(path)
+        with open(path / "cameras.json") as f:
+            camera_json = json.load(f)
+        meta = camera_json.pop("meta", {})
+        cameras = Camera.from_kwargs(camera_json, device=device)
+        if frames is None:
+            inds = list(range(len(cameras)))
+        elif isinstance(frames, int):
+            inds = [frames]
+        else:
+            inds = list(frames)
+        cameras = Camera.cat([cameras[i] for i in inds])
+        color = np.stack([png.read_png(path / f"{i:04d}.color.png")
+                          for i in inds]).astype(np.float32) / 255.0
+        depth = np.stack([png.read_png(path / f"{i:04d}.depth.png")
+                          for i in inds]).astype(np.float32) / 1000.0
+        mask = np.stack([png.read_png(path / f"{i:04d}.mask.png") > 0
+                         for i in inds]).astype(np.float32)
+        return cls(torch.from_numpy(color.transpose(0, 3, 1, 2)),
+                   torch.from_numpy(depth)[:, None],
+                   torch.from_numpy(mask)[:, None], cameras, **meta)
 
     # ----------------------------------------------------------- preprocessing
     def zoom(self, target_dist, target_size, camera: Camera = None) -> "Observation":
@@ -85,6 +149,15 @@ class Observation:
                               scale_mode="nearest")
         return self._with(color, depth, mask, new_camera, is_zoomed=True)
 
+    def uncrop(self, camera: Camera = None) -> "Observation":
+        """Paste zoomed frames back into the full frame (color bilinear,
+        depth and mask nearest)."""
+        camera = self.camera if camera is None else camera
+        color, new_camera = camera.uncrop(self.color, scale_mode="bilinear")
+        depth, _ = camera.uncrop(self.depth, scale_mode="nearest")
+        mask, _ = camera.uncrop(self.mask, scale_mode="nearest")
+        return self._with(color, depth, mask, new_camera, is_zoomed=False)
+
     def prepare(self, crop_color: bool = True, crop_depth: bool = True) -> "Observation":
         """Mask out the background."""
         color = (gan_denormalize(gan_normalize(self.color) * self.mask)
@@ -97,3 +170,50 @@ class Observation:
         return self._with(gan_normalize(self.color),
                           self.camera.normalize_depth(self.depth),
                           is_normalized=True)
+
+    def denormalize(self) -> "Observation":
+        """Undo ``normalize``."""
+        return self._with(gan_denormalize(self.color),
+                          self.camera.denormalize_depth(self.depth),
+                          is_normalized=False)
+
+    # ------------------------------------------------------------- geometry
+    def estimate_camera(self) -> Camera:
+        """The translation-only initial camera from depth and mask."""
+        from .pose.initialization import estimate_initial_pose
+
+        return estimate_initial_pose(self.depth, self.mask, self.camera.intrinsic,
+                                     self.camera.width, self.camera.height)
+
+    def zoom_estimate(self, target_dist, target_size) -> "Observation":
+        """``zoom`` about the estimated camera."""
+        return self.zoom(target_dist, target_size, camera=self.estimate_camera())
+
+    def pointcloud(self, frame: str = "object", return_colors: bool = False,
+                   segment: bool = True):
+        """Back-projected points (B, H*W, 3) in the object or camera frame,
+        with (B, H*W) colors if asked, and with ``segment`` the (B, H*W)
+        mask of the valid points (mask over 0.5 and depth over 0): fixed
+        shapes, where the original returns ragged arrays."""
+        coords = (self.camera.depth_object_coords(self.depth) if frame == "object"
+                  else self.camera.depth_camera_coords(self.depth))
+        points = torch.stack(coords, dim=-1).reshape(len(self), -1, 3)
+        valid = ((self.mask > 0.5).reshape(len(self), -1)
+                 & (self.depth.reshape(len(self), -1) > 0))
+        out = (points,)
+        if return_colors:
+            out += (self.color.permute(0, 2, 3, 1).reshape(len(self), -1, 3),)
+        if segment:
+            out += (valid,)
+        return out[0] if len(out) == 1 else out
+
+    def dilate(self, kernel_size: int = 5) -> "Observation":
+        """Dilate the mask by a square ``kernel_size`` window and paint the
+        new ring with the mean foreground color."""
+        pad_color = imutils.mean_color(self.color, self.mask).mean(dim=0)
+        pad_color = pad_color.reshape(1, 3, 1, 1).expand_as(self.color)
+        dilated = imutils.dilate(self.mask, 1, kernel_size)
+        pad_mask = dilated - self.mask
+        bg_mask = (1.0 - dilated).clamp_min(0)
+        color = self.mask * self.color + bg_mask * self.color + pad_mask * pad_color
+        return self._with(color, mask=dilated)

@@ -7,7 +7,7 @@ import torch
 
 from .. import imutils, three
 from ..camera import Camera
-from ..three import quaternion
+from ..three import quaternion, stats
 
 
 def masks_to_viewports(masks: torch.Tensor, pad: float = 10.0) -> torch.Tensor:
@@ -34,19 +34,11 @@ def masks_to_centroids(masks: torch.Tensor) -> torch.Tensor:
                         (viewports[:, 3] + viewports[:, 1]) / 2.0), dim=-1)
 
 
-def _median(values: torch.Tensor) -> torch.Tensor:
-    """Median of a 1-D tensor, the mean of the two middle values for an
-    even count (numpy's convention)."""
-    s = torch.sort(values).values
-    m = s.shape[0]
-    return (s[(m - 1) // 2] + s[m // 2]) / 2.0
-
-
 def _reject_outliers_mad_bounds(values: torch.Tensor, m: float = 3.0):
     """Min and max of the values within ``m`` median absolute deviations of
     the median."""
-    median = _median(values)
-    mad = _median((values - median).abs())
+    median = stats.median(values)
+    mad = stats.median((values - median).abs())
     inliers = values[(values - median).abs() / mad.clamp_min(1e-12) < m]
     return inliers.min(), inliers.max()
 

@@ -22,6 +22,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ..modules.unet import UNet2d
 from .fusion import GRUFuser
 from .models import Photographer, Sculptor
 
@@ -39,7 +40,7 @@ def from_jax_params(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
     """JAX parameters keyed by pytree path -> the port's ``state_dict``.
 
     A flax ``params`` level is dropped; other leading names (``sculptor``,
-    ``fuser``, ``photographer``) stay as key prefixes. ``name_<i>`` becomes
+    ``fuser``, ``photographer``, ``generator``) stay as key prefixes. ``name_<i>`` becomes
     list indexing ``name.<i>``, and conv weights move under ``.module``.
     """
     state = {}
@@ -128,3 +129,17 @@ def modules_from_checkpoint(checkpoint: Mapping[str, Any]):
                                 mods[name]["state_dict"].items()})
         out.append(module)
     return tuple(out)
+
+
+def generator_from_checkpoint(checkpoint: Mapping[str, Any]):
+    """The IBR generator of a checkpoint dict with its state dict loaded, a
+    ``UNet2d(in_channels, out_channels, block_config)``; None when the
+    checkpoint has none."""
+    gen = checkpoint.get("modules", {}).get("generator")
+    if gen is None:
+        return None
+    args = _filter_args(UNet2d, gen["args"])
+    args["block_config"] = _to_block_config(args["block_config"])
+    module = UNet2d(**args)
+    module.load_state_dict({k: torch.as_tensor(v) for k, v in gen["state_dict"].items()})
+    return module

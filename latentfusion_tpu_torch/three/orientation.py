@@ -1,7 +1,8 @@
-"""Rotation sampling for pose hypotheses (counterpart of the parts of
-``latentfusion_tpu/three/orientation.py`` that seed the estimators):
+"""Rotation sampling (counterpart of ``latentfusion_tpu/three/orientation.py``):
+spiral orbits, rays in a segment or hemisphere around an up vector,
 sunflower-even points on the sphere and the quaternions that look along
-them. Random draws take a ``torch.Generator`` and happen on its device."""
+them, disk-sampled quaternions. Random draws take a ``torch.Generator`` and
+happen on its device; the rejection loops keep the JAX package's bounds."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,67 @@ from . import quaternion as q
 
 
 UP = (0.0, 0.0, 1.0)
+
+
+def spiral_orbit(n: int, c: int = 16, device=None) -> torch.Tensor:
+    """``n`` pure quaternions along a spiral from pole to pole."""
+    phi = core.linspace(0, math.pi, n, device=device)
+    return q.from_spherical(phi, c * phi)
+
+
+def _check_up(up, n: int, device) -> torch.Tensor:
+    up = torch.as_tensor(up, dtype=torch.float32, device=device)
+    if up.dim() == 1:
+        up = up.expand(n, up.shape[0])
+    return core.normalize(up)
+
+
+def _ray_angles(rays: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.arccos(core.inner_product(up, rays).clamp(-1.0, 1.0))
+
+
+def _random_rays(n: int, generator: torch.Generator) -> torch.Tensor:
+    return core.normalize(torch.randn(n, 3, generator=generator,
+                                      device=generator.device))
+
+
+def sample_segment_rays(n: int, up, min_angle, max_angle,
+                        generator: torch.Generator,
+                        max_iters: int = 256) -> torch.Tensor:
+    """``n`` unit rays whose angle to ``up`` lies in [min_angle, max_angle]:
+    rays outside are redrawn, at most ``max_iters`` times."""
+    rays = _random_rays(n, generator)
+    up = _check_up(up, n, rays.device)
+    for _ in range(max_iters):
+        angles = _ray_angles(rays, up)
+        valid = (min_angle <= angles) & (angles <= max_angle)
+        if bool(valid.all()):
+            break
+        rays = torch.where(valid[:, None], rays, _random_rays(n, generator))
+    return core.normalize(rays)
+
+
+def sample_hemisphere_rays(n: int, up, generator: torch.Generator) -> torch.Tensor:
+    """``n`` uniform unit rays, those below ``up``'s plane reflected into
+    its hemisphere."""
+    rays = _random_rays(n, generator)
+    up = _check_up(up, n, rays.device)
+    dot = (up * rays).sum(dim=-1)
+    reflected = rays - 2 * dot[:, None] * up
+    return torch.where((dot < 0)[:, None], reflected, rays)
+
+
+def sample_segment_quats(n: int, up, min_angle, max_angle,
+                         generator: torch.Generator) -> torch.Tensor:
+    """Rotations that tilt ``up`` onto a segment ray, after a uniform yaw
+    about ``up`` (the yaw drawn first)."""
+    up = _check_up(up, n, generator.device)
+    yaw_angle = torch.rand(n, generator=generator, device=generator.device) * math.pi * 2.0
+    yaw_quat = q.from_axis_angle(up, yaw_angle)
+    rays = sample_segment_rays(n, up, min_angle, max_angle, generator)
+    pivot = torch.linalg.cross(up, rays)
+    quat = q.from_axis_angle(pivot, _ray_angles(rays, up))
+    return q.qmul(quat, yaw_quat)
 
 
 def evenly_distributed_points(n: int, hemisphere: bool = False,
@@ -61,3 +123,22 @@ def evenly_distributed_quats(n: int, hemisphere: bool = False,
     upright to +z or rolled at random."""
     rays = evenly_distributed_points(n, hemisphere, device)
     return random_quat_from_ray(-rays, UP if upright else None, generator=generator)
+
+
+def disk_sample_quats(n: int, min_angle: float, generator: torch.Generator,
+                      max_tries: int = 64) -> torch.Tensor:
+    """Greedy Poisson-disk sampling: uniform random quaternions, each kept
+    if it is at least ``min_angle`` from every one kept before, or after
+    ``max_tries`` rejections in a row."""
+    quats = torch.zeros(n, 4, device=generator.device)
+    quats[0] = q.random(1, generator)[0]
+    count, num_tries = 1, 0
+    while count < n:
+        new_quat = q.random(1, generator)
+        angles = q.angular_distance(quats[:count], new_quat)[:, 0]
+        if bool((angles >= min_angle).all()) or num_tries > max_tries:
+            quats[count] = new_quat[0]
+            count, num_tries = count + 1, 0
+        else:
+            num_tries += 1
+    return quats

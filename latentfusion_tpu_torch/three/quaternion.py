@@ -96,6 +96,27 @@ def qmul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return torch.stack((w, x, y, z), dim=-1)
 
 
+def rotate_vector(quat: torch.Tensor, vector: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vectors (..., 3) by unit quaternions (..., 4)."""
+    shape = vector.shape
+    quat = quat.reshape(-1, 4)
+    vector = vector.reshape(-1, 3)
+    pure, vector = torch.broadcast_tensors(quat[:, 1:], vector)
+    uv = torch.linalg.cross(pure, vector)
+    uuv = torch.linalg.cross(pure, uv)
+    return (vector + 2 * (quat[:, :1] * uv + uuv)).reshape(shape)
+
+
+def from_spherical(theta, phi, r=1.0) -> torch.Tensor:
+    """Pure quaternions (0, x, y, z) of spherical directions; as in the
+    original, only z is scaled by ``r``."""
+    theta, phi = torch.as_tensor(theta), torch.as_tensor(phi)
+    x = torch.cos(theta) * torch.sin(phi)
+    y = torch.sin(theta) * torch.sin(phi)
+    z = r * torch.cos(phi)
+    return torch.stack((torch.zeros_like(x), x, y, z), dim=-1)
+
+
 def qexp(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Quaternion exponential of (*, 4) or pure-imaginary (*, 3) input."""
     if q.shape[-1] == 4:
@@ -126,6 +147,22 @@ def from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
     s = torch.sin(angle / 2.0)
     return torch.stack((c, s * axis[..., 0], s * axis[..., 1], s * axis[..., 2]),
                        dim=-1)
+
+
+def qdelta(n: int, std, generator: torch.Generator) -> torch.Tensor:
+    """``n`` random small rotations: the exponential of N(0, std / 2)
+    rotation vectors, drawn on the generator's device."""
+    noise = torch.randn(n, 3, generator=generator, device=generator.device)
+    omega = torch.cat((torch.zeros_like(noise[:, :1]), noise), dim=-1)
+    return qexp(std / 2.0 * omega)
+
+
+def perturb(q: torch.Tensor, std, generator: torch.Generator) -> torch.Tensor:
+    """Unit quaternions ``q`` (n, 4) or (4,) turned by random rotations of
+    ``std`` radians (``qdelta``, applied on the left)."""
+    q, unsqueezed = core.ensure_batch_dim(q, 1)
+    q_out = qmul(qdelta(q.shape[0], std, generator).to(q.device), q)
+    return q_out[0] if unsqueezed else q_out
 
 
 def angular_distance(q1: torch.Tensor, q2: torch.Tensor,

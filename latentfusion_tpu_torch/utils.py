@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+from bisect import bisect_right
 
 
 def _parse_block(s: str):
@@ -52,3 +53,18 @@ class ExponentialScheduler:
         if step >= self.num_steps:
             return self.final_value
         return self.initial_value * math.exp(-step / self.mean_lifetime)
+
+
+class MultiStepMilestoneScheduler:
+    """``initial_value`` times ``gamma`` for every milestone at or below
+    the step."""
+
+    def __init__(self, initial_value, milestones, gamma):
+        self.initial_value = initial_value
+        self.milestones = milestones
+        self.gamma = gamma
+
+    def get(self, step):
+        if self.milestones is None:
+            return self.initial_value
+        return self.initial_value * self.gamma ** bisect_right(self.milestones, step)

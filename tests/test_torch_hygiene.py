@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``latentfusion_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or the JAX package, and no entry point
-runs on the CPU unless asked to."""
+``chip_smoke.py``) imports JAX, flax or the JAX package, nor an image
+library the GPU machine lacks (imageio, PIL, cv2), and no entry point runs
+on the CPU unless asked to."""
 import ast
 from pathlib import Path
 
@@ -15,7 +16,7 @@ from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
 from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu", "imageio", "PIL", "cv2"}
 
 
 def _port_files():
@@ -43,7 +44,12 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/train/step.py",
             "latentfusion_tpu_torch/unseen_eval.py",
             "latentfusion_tpu_torch/functional.py",
-            "latentfusion_tpu_torch/modules/vgg.py"} <= names
+            "latentfusion_tpu_torch/modules/vgg.py",
+            "latentfusion_tpu_torch/ibr.py",
+            "latentfusion_tpu_torch/png.py",
+            "latentfusion_tpu_torch/three/stats.py",
+            "latentfusion_tpu_torch/three/utils.py",
+            "latentfusion_tpu_torch/three/host.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -141,3 +147,16 @@ def test_unseen_object_entry_points_raise_without_gpu(no_gpu):
             make()
     assert testing.MultiLobeOracleModel(shape, device="cpu").device.type == "cpu"
     assert unseen_eval.load_cameras(2, 1, device="cpu")[0].device.type == "cpu"
+
+
+def test_reconstruction_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    K, ext = _camera_args()
+    cam = Camera(K, ext, width=64, height=48, device="cpu")
+    obs = Observation(np.zeros((1, 3, 48, 64), np.float32), np.zeros((1, 1, 48, 64), np.float32),
+                      np.zeros((1, 1, 48, 64), np.float32), cam)
+    obs.save(tmp_path / "obs")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Observation.load(tmp_path / "obs")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Camera.from_kwargs(cam.to_kwargs())
+    assert Observation.load(tmp_path / "obs", device="cpu").color.device.type == "cpu"
