@@ -123,10 +123,42 @@ line after it ends:
    IoU and depth error against the truth are printed beside JAX's, with
    ``estimate_camera``'s translation error, ms and peak memory per call of
    8 targets and one ``render_ibr`` profiled by op (time and memory).
+11. model options and the GAN step: (a) the training tool's default
+   architecture at input 256 (latentfusion_tpu/train/args.py:94-125: 32^3
+   camera volumes and latent, factor projections, the pool:max fuser),
+   predicting color, depth and mask, with an occlusion module of the
+   tool's default --fuser-config shape and the multi-scale discriminator
+   (64, 128, 256, 512 over 3 scales) on color + depth + mask, the tool's
+   loss defaults and instance noise at weight 1, weights N(0, 1) from
+   --seed, Adam (0, 0.99) for both, on phase 7's batches (global batch 8
+   in 2 microbatches, 8 + 24 views): the loss and the G and D gradients
+   of a step on one object of the batch at the initial weights against
+   the plain versions (see gradient_check: the step is ill-conditioned
+   there, so the loss and each gradient tensor are also held to their own
+   floors, and the PixelNorm sites near zero are counted); two steps from
+   the same state and batch, the same loss, gradient and parameter bits:
+   one timed (ms, peak memory), one profiled with its launches, K1 and K2
+   shapes and losses (all finite), and the discriminator's device time
+   read from its trace (the ``discriminator`` profiler range of
+   train/step.py and the backward of the ops inside it).
+   (b) At flagship width: the Blend and the LSTM fusers each build o0 and
+   render 128 hypotheses (against the plain versions, as phase 3); one
+   Blend training step on phase 7's batch with the input views
+   reconstructed, the noisy depth input and RMSprop, and the same step with
+   remat: the same gradient and parameter bits, peak memory of each; a
+   Photographer with skip connections decodes the 16 views of o0 at their
+   own cameras from the Sculptor's intermediates, forward and backward,
+   against the plain versions. Every K1 call of the phase must be a shape
+   phase 2 held (phase 2 holds K1-fwd and K1-bwd-vol at the Blend weights'
+   one channel, at the training microbatch's shapes with the input views
+   reconstructed, and at the tool architecture's 32^3 volumes). Phase 3
+   also checks that a GRU build launches K1-fwd once (the Sculptor maps
+   its camera intermediates only for a fuser that reads them) and that the
+   latent is the same bits as with them mapped.
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phase 10's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10 and 11's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -171,6 +203,11 @@ NET_TOL = 5e-4  # a network's output on the kernels vs on the plain versions
 # floor perturbs the activations at both sizes, rounded up.
 FLOOR_EPS = (1e-7, 4e-7)
 FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
+# The gradient of a parameter that does not reach the output (a conv bias
+# before instance norm), relative to the largest gradient: rounding noise.
+NOISE_ONLY_TOL = 1e-3
+NEAR_ZERO_INV = 1e3  # a K2 site whose PixelNorm scale exceeds this sits near zero
+WITNESS_DRAWS = 2  # draws per backward kernel of backward_witness's floor
 ORACLE_AXES = (0.21, 0.36, 0.5)  # tools/train_encoder_distill.py's ellipsoid
 ORACLE_DIAMETER = 2 * max(ORACLE_AXES)
 RECON_CAMERAS = ROOT / "latentfusion_tpu_torch" / "recon_cameras.json"
@@ -180,8 +217,23 @@ RECON_GENERATOR_CONFIG = ((64, "D", 128, "D", 256, "D", 512),
 # The published recipe (tools/train_reconstruct.py): global batch 8 in 2
 # microbatches, 8 input and 24 output views, 640x480 renders.
 TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
-TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 40, 10
+TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 20, 10
 TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
+# Phase 11 (a): the training tool's default architecture at input 256
+# (latentfusion_tpu/train/args.py:94-125): camera volumes and latent of 32^3.
+GAN_INPUT_SIZE, GAN_LATENT_SIZE = 256, 32
+TOOL_SCULPTOR = dict(
+    image_config=((64, "D", 64, "D", 128, "D", 256, "D", 512, "D", 512, "D", 512),
+                  (512, "U", 512, "U", 512, "U", 256)),
+    camera_config=(32, 64, 128), object_config=(128, 256))
+TOOL_PHOTOGRAPHER = dict(
+    image_config=((256, "D", 512, "D", 512, "D", 512),
+                  (512, "U", 512, "U", 512, "U", 256, "U", 128, "U", 64, "U", 32)),
+    camera_config=(256, 256, 256), object_config=(256, 256))
+GAN_D_CONFIG, GAN_D_SCALES = (64, 128, 256, 512), 3
+# The tool's default --fuser-config: the Blend fuser's U-Net here, and the
+# occlusion module's (no shipped configuration sets one).
+OPTION_UNET3D_CONFIG = ((4, "D", 4, "D", 8, "D", 16), (16, "U", 8, "U", 4, "U", 4))
 # K2-bwd's calls in one flagship refinement step (8 hypotheses): x's shape
 # and calls per step (phase 5 checks them against a step).
 REFINE_K2_CALLS = (((8, 256, 16, 16, 16), 2), ((8, 256, 16, 16), 3),
@@ -978,17 +1030,16 @@ def drive_slice(label, model, objects, kernels, seed, profile):
     it and hold it against the same path on the plain versions."""
     from latentfusion_tpu_torch import modules, transforms
 
-    fused_sample, lrelu_pnorm = kernels
     counts = {}
     for name, index in objects:
         obs = reference_views(index, model.device)
         cams = hypothesis_cameras(obs, model.input_size, model.camera_dist,
                                   torch.Generator(device=model.device).manual_seed(seed))
-        fused_sample.LAUNCHES = lrelu_pnorm.LAUNCHES = 0
+        reset_counters(kernels)
         z = model.build_latent_object(obs)
         y, _ = model.render_latent_object(z, cams, return_latent=False)
         torch.cuda.synchronize()
-        counts[name] = {"K1": fused_sample.LAUNCHES, "K2": lrelu_pnorm.LAUNCHES}
+        counts[name] = read_counters(kernels)
         if not (counts[name]["K1"] > 0 and counts[name]["K2"] > 0):
             fail(f"{label} {name}: a kernel was not launched: {counts[name]}")
         size = model.photographer.out_size
@@ -1056,7 +1107,7 @@ def views(obs, start: int, stop: int):
 
 def profile_step(fn):
     """Print the device time of one call of ``fn`` by kernel (torch.profiler);
-    returns the profiler's averages by name."""
+    returns the profiler's averages by name and its events."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -1064,7 +1115,24 @@ def profile_step(fn):
         torch.cuda.synchronize()
     averages = prof.key_averages()
     say(averages.table(sort_by="self_device_time_total", row_limit=15))
-    return averages
+    return averages, prof.events()
+
+
+def range_device_ms(events, name: str) -> float:
+    """Device ms of the work of the profiler ranges called ``name``: the ops
+    inside them, and the backward of those ops (autograd's
+    evaluate_function events with the sequence number and forward thread
+    of an op inside a range)."""
+    def walk(event):
+        yield event
+        for child in event.cpu_children:
+            yield from walk(child)
+
+    ranges = [e for e in events if e.name == name]
+    forward = {(e.sequence_nr, e.thread) for r in ranges for e in walk(r) if e.sequence_nr >= 0}
+    backward = [e for e in events if e.name.startswith("autograd::engine::evaluate_function")
+                and (e.sequence_nr, e.fwd_thread) in forward]
+    return sum(e.device_time_total for e in ranges + backward) / 1e3
 
 
 def kernel_device_ms(averages, name_part: str):
@@ -1073,11 +1141,11 @@ def kernel_device_ms(averages, name_part: str):
     return sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
 
 
-def record_step(step_fn):
+def record_step(step_fn, keep_resizes: bool = True):
     """One call of ``step_fn`` with K2-fwd's and K2-bwd's input shapes
     counted, {shape: (forward calls, backward calls)}, and the inputs of
     the linear resizes (decoder blocks, U-Net heads, the Photographer's
-    last resize) kept."""
+    last resize) kept unless ``keep_resizes`` is False."""
     from latentfusion_tpu_torch.modules import blocks, unet
     from latentfusion_tpu_torch.ops import interpolate as resize_mod, lrelu_pnorm
     from latentfusion_tpu_torch.recon import models
@@ -1099,7 +1167,7 @@ def record_step(step_fn):
         return bwd(x, inv, g, slope)
 
     def spy_resize(x, scale_factor=None, size=None, mode="nearest"):
-        if mode != "nearest":
+        if mode != "nearest" and keep_resizes:
             resizes.append((x.detach().clone(), scale_factor, mode))
         return resize(x, scale_factor=scale_factor, size=size, mode=mode)
 
@@ -1321,7 +1389,7 @@ def phase_pose_flagship(model, kernels, seed, k2_tables):
 
     gradient_check("flagship refinement step", step, fine.model.photographer, kernels)
     say("  one refinement step (8 hypotheses, forward and backward), device time by kernel:")
-    averages = profile_step(step)
+    averages, _ = profile_step(step)
     for name, kernel, table in (("K2-fwd", "lrelu_pnorm_fwd_kernel", k2_tables["fwd"]),
                                 ("K2-bwd", "lrelu_pnorm_bwd_kernel", k2_tables["bwd"])):
         ms, calls = kernel_device_ms(averages, kernel)
@@ -1468,13 +1536,48 @@ def deterministic_cost(step) -> None:
                     for k, v in times.items()))
 
 
+def per_tensor_rel(grads, ref, names) -> dict:
+    """Each tensor's max |a - b| over its reference's max |b|."""
+    return {k: float((grads[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+            for k in names}
+
+
 def worst_rel(grads, ref) -> float:
     """The largest of each tensor's max |a - b| over its reference's max |b|."""
-    return max(float((grads[k] - ref[k]).abs().max())
-               / max(float(ref[k].abs().max()), 1e-30) for k in ref)
+    return max(per_tensor_rel(grads, ref, list(ref)).values())
 
 
-def gradient_check(label, grads_fn, network, kernels) -> None:
+@contextlib.contextmanager
+def plain_backward(kernels, jittered=None, draw=0):
+    """K1-bwd-grid, K1-bwd-vol and K2-bwd on their plain versions; the
+    outputs of the one named ``jittered`` ("K1-bwd-vol" or "K2-bwd")
+    multiplied by (1 + FLOOR_EPS[0] N(0, 1)), draw ``draw``."""
+    fused_sample, lrelu_pnorm = kernels
+    plain = {"K1-bwd-grid": (fused_sample, "grid_sample_3d_bwd_grid",
+                             fused_sample.grid_sample_3d_bwd_grid_plain),
+             "K1-bwd-vol": (fused_sample, "grid_sample_3d_bwd_vol",
+                            fused_sample.grid_sample_3d_bwd_vol_plain),
+             "K2-bwd": (lrelu_pnorm, "lrelu_pixel_norm_bwd", lrelu_pnorm.lrelu_pixel_norm_bwd_plain)}
+
+    def jitter(fn):
+        calls = []
+
+        def run(*args):
+            out = fn(*args)
+            calls.append(None)
+            g = torch.Generator(device=out.device).manual_seed(1000 * draw + len(calls))
+            return out * (1 + FLOOR_EPS[0] * torch.randn(out.shape, generator=g, device=out.device))
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name, (module, attr, fn) in plain.items():
+            stack.enter_context(mock.patch.object(
+                module, attr, jitter(fn) if name == jittered else fn))
+        yield
+
+
+def gradient_check(label, grads_fn, network, kernels, noise_only=(),
+                   ill_conditioned=False) -> None:
     """``grads_fn() -> (loss, {name: gradient})`` on the kernels against the
     same call on the plain versions (``transforms`` and ``modules`` on their
     "torch" backends), each gradient relative to its reference's largest
@@ -1488,39 +1591,94 @@ def gradient_check(label, grads_fn, network, kernels) -> None:
     gradient jumps between discrete values with the activations' last bits.
     Its floor is the largest of 6 draws of how far the plain gradient moves
     when every convolution of ``network`` multiplies its output by (1 + eps
-    N(0, 1)), 3 draws for each eps of FLOOR_EPS."""
+    N(0, 1)), 3 draws for each eps of FLOOR_EPS. The gradients named in
+    ``noise_only`` (parameters that do not reach the output, whose gradient
+    is rounding noise) are left out of those comparisons and gated below
+    NOISE_ONLY_TOL of the largest gradient instead.
+
+    With ``ill_conditioned`` (a step whose forward and backward both
+    amplify last-bit differences) the loss is gated at the larger of
+    NET_TOL and FLOOR_FACTOR times its own noise floor (the same perturbed
+    runs), and the backward alone gets a floor too: for each tensor, how
+    far the gradient with the forward shared moves when the plain K2-bwd's
+    or K1-bwd-vol's outputs are multiplied by (1 + eps N(0, 1)), eps =
+    FLOOR_EPS[0], WITNESS_DRAWS draws each; the shared gradient of each
+    tensor is then gated at the larger of NET_TOL and FLOOR_FACTOR times its
+    own floor. A tensor whose floor is above NET_TOL is one that rounding
+    in the backward alone moves, whatever computes it."""
     from latentfusion_tpu_torch import modules, testing, transforms
 
-    fused_sample, lrelu_pnorm = kernels
+    def worst(grads, ref):
+        return worst_rel({k: v for k, v in grads.items() if k not in noise_only},
+                         {k: v for k, v in ref.items() if k not in noise_only})
+
     loss_k, grads_k = grads_fn()
     _, grads_k2 = grads_fn()
-    with mock.patch.object(fused_sample, "grid_sample_3d_bwd_grid",
-                           fused_sample.grid_sample_3d_bwd_grid_plain), \
-            mock.patch.object(fused_sample, "grid_sample_3d_bwd_vol",
-                              fused_sample.grid_sample_3d_bwd_vol_plain), \
-            mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_bwd",
-                              lrelu_pnorm.lrelu_pixel_norm_bwd_plain):
+    with plain_backward(kernels):
         _, grads_s = grads_fn()
-    floors = []
+    floors, loss_floors = [], []
     with transforms.volume_sample_backend("torch"), modules.lrelu_pnorm_backend("torch"):
         loss_p, grads_p = grads_fn()
         for eps in FLOOR_EPS:
             for draw in range(3):
                 with testing.convs_perturbed(network, eps, draw):
-                    floors.append(worst_rel(grads_fn()[1], grads_p))
-    loss_err, shared_err = rel_err(loss_k, loss_p), worst_rel(grads_k, grads_s)
-    grad_err, grad_tol = worst_rel(grads_k, grads_p), FLOOR_FACTOR * max(floors)
+                    loss, grads = grads_fn()
+                floors.append(worst(grads, grads_p))
+                loss_floors.append(rel_err(loss, loss_p))
+                del grads
+    names = [k for k in grads_k if k not in noise_only]
+    shared = per_tensor_rel(grads_k, grads_s, names)
+    shared_tol, loss_tol = dict.fromkeys(names, NET_TOL), NET_TOL
+    if ill_conditioned:
+        loss_tol = max(NET_TOL, FLOOR_FACTOR * max(loss_floors))
+        moved = {}
+        for kernel in ("K2-bwd", "K1-bwd-vol"):
+            for draw in range(WITNESS_DRAWS):
+                with plain_backward(kernels, kernel, draw):
+                    rel = per_tensor_rel(grads_fn()[1], grads_s, names)
+                moved[kernel] = {k: max(moved.get(kernel, {}).get(k, 0.0), rel[k])
+                                 for k in names}
+        floor = {k: max(m[k] for m in moved.values()) for k in names}
+        shared_tol = {k: max(NET_TOL, FLOOR_FACTOR * floor[k]) for k in names}
+        ill = sorted((k for k in names if floor[k] > NET_TOL), key=floor.get, reverse=True)
+        say(f"  {label}: the loss's noise floor {json.dumps(loss_floors)}, tol "
+            f"{loss_tol:.3g}; backward-only floor (the plain K2-bwd's or K1-bwd-vol's outputs "
+            f"perturbed by {FLOOR_EPS[0]:g}, {WITNESS_DRAWS} draws each), largest "
+            f"{json.dumps({k: max(v.values()) for k, v in moved.items()})}; {len(ill)} "
+            f"tensors with a floor above {NET_TOL} (name, floor, shared err) "
+            f"{json.dumps([(k, f'{floor[k]:.3g}', f'{shared[k]:.3g}') for k in ill])}; the "
+            f"others' largest shared err "
+            f"{max((shared[k] for k in names if k not in ill), default=0.0):.3g}")
+    loss_err, shared_err = rel_err(loss_k, loss_p), max(shared.values())
+    grad_err, grad_tol = worst(grads_k, grads_p), FLOOR_FACTOR * max(floors)
+    largest = max(float(v.abs().max()) for v in grads_k.values())
+    noise = max((float(grads[k].abs().max()) / largest for grads in (grads_k, grads_p)
+                 for k in noise_only), default=0.0)
+
+    def farthest(grads, ref):
+        errs = per_tensor_rel(grads, ref, names)
+        return [(k, f"{errs[k]:.3g}") for k in sorted(errs, key=errs.get, reverse=True)[:3]]
+
     say(f"  {label} ({len(grads_k)} gradients), kernels vs plain: loss rel err "
-        f"{loss_err:.3g}; gradient with the forward shared {shared_err:.3g} (tol "
-        f"{NET_TOL}); end to end {grad_err:.3g}, noise "
+        f"{loss_err:.3g} (tol {loss_tol:.3g}); gradient with the forward shared "
+        f"{shared_err:.3g} (tol {NET_TOL}"
+        f"{', or 3x the backward-only floor of a tensor' if ill_conditioned else ''}); "
+        f"end to end {grad_err:.3g}, noise "
         f"floor (plain, convolutions perturbed by {FLOOR_EPS}) {json.dumps(floors)}, "
         f"tol {FLOOR_FACTOR:g} x largest = {grad_tol:.3g}; kernels repeated "
-        f"{worst_rel(grads_k2, grads_k):.3g}, same bits "
-        f"{all(torch.equal(grads_k2[n], grads_k[n]) for n in grads_k)} (not gated)")
-    if not max(loss_err, shared_err) <= NET_TOL:
+        f"{worst(grads_k2, grads_k):.3g}, "
+        f"same bits {all(torch.equal(grads_k2[n], grads_k[n]) for n in grads_k)} (not gated)"
+        + (f"; {len(noise_only)} gradients of parameters that do not reach the output, "
+           f"largest {noise:.3g} of the largest gradient (tol {NOISE_ONLY_TOL})"
+           if noise_only else ""))
+    say(f"    farthest with the forward shared {farthest(grads_k, grads_s)}; end to end "
+        f"{farthest(grads_k, grads_p)}")
+    if not (loss_err <= loss_tol and all(shared[k] <= shared_tol[k] for k in names)):
         fail(f"{label}: the kernels disagree with the plain versions")
     if not grad_err <= grad_tol:
         fail(f"{label}: the gradient on the kernels is beyond its noise floor")
+    if not noise <= NOISE_ONLY_TOL:
+        fail(f"{label}: a parameter that does not reach the output has a gradient")
 
 
 def phase_pose_accuracy(model, kernels, seed, checks=True):
@@ -2237,6 +2395,545 @@ def phase_recon(model, kernels, seed) -> dict:
     return counts
 
 
+def phase_eleven(kernels, seed, held, smi) -> dict:
+    """Phase 11 (a) and (b); returns the launch counts by path."""
+    say("== phase 11/11: the model options and the GAN training step: the training tool's "
+        "default architecture with the discriminator; the Blend and LSTM fusers and skip "
+        "connections at flagship width")
+    t11 = time.perf_counter()
+    options = phase_options(kernels, seed, held)
+    t_options = time.perf_counter() - t11
+    gan_counts = phase_gan(kernels, seed, held)
+    say(f"   phase 11 launches: GAN step {json.dumps(gan_counts)}, options "
+        f"{json.dumps(options)}; phase 11 took {time.perf_counter() - t11:.1f} s "
+        f"((b) {t_options:.1f} s) on {smi}")
+    return {"gan_step": gan_counts, **options}
+
+
+def build_launches(model, kernels) -> None:
+    """The flagship build of o0: K1-fwd launches, with the Sculptor's camera
+    intermediates mapped only for a fuser that reads them (the GRU fuser
+    does not: one launch, the last camera block's output) and with them
+    forced on (one a camera block, the last reused); the latent must be the
+    same bits."""
+    fused_sample = kernels[0]
+    obs = reference_views(0, model.device)
+    sculptor = model.sculptor
+    launches, latents = [], []
+    for force in (False, True):
+        forward = sculptor.forward
+        patch = (mock.patch.object(sculptor, "forward", lambda x, cam, **_: forward(
+            x, cam, camera_intermediates=True)) if force else contextlib.nullcontext())
+        reset_counters(kernels)
+        with patch:
+            latents.append(model.build_latent_object(obs))
+        torch.cuda.synchronize()
+        launches.append(fused_sample.LAUNCHES)
+    same = bool(torch.equal(*latents))
+    blocks = len(sculptor.camera_blocks)
+    say(f"  flagship build of o0: K1-fwd launches {launches[0]} (with the camera "
+        f"intermediates mapped: {launches[1]}; {blocks} camera blocks); the latent the same "
+        f"bits {same}")
+    if not (same and launches == [1, blocks]):
+        fail("flagship build: the camera intermediates changed the latent or the launches")
+
+
+def tool_models(generator):
+    """The training tool's default architecture at input 256
+    (latentfusion_tpu/train/args.py:94-125: factor projections, the
+    pool:max fuser, bilinear resizes, no input mask), predicting color, depth
+    and mask, with the occlusion module at OPTION_UNET3D_CONFIG; and the
+    multi-scale discriminator at its defaults on color + depth + mask.
+    Weights N(0, 1) from ``generator``."""
+    from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.pggan import MultiScaleDiscriminator
+    from latentfusion_tpu_torch.recon import fusion
+    from latentfusion_tpu_torch.recon.models import Photographer, Sculptor
+
+    sculptor = Sculptor(in_size=GAN_INPUT_SIZE, projection_type="factor", input_color=True,
+                        input_depth=False, input_mask=False, cube_size=1.0,
+                        scale_mode="bilinear", **TOOL_SCULPTOR)
+    photographer = Photographer(in_size=GAN_LATENT_SIZE, projection_type="factor",
+                                occlusion_config=OPTION_UNET3D_CONFIG, predict_color=True,
+                                predict_depth=True, predict_mask=True, cube_size=1.0,
+                                scale_mode="bilinear", **TOOL_PHOTOGRAPHER)
+    mods = {"sculptor": zoo.init_weights_(sculptor, generator).cuda(),
+            "fuser": fusion.get_fuser("pool:max", TOOL_SCULPTOR["object_config"][-1], 1.0,
+                                      generator=generator),
+            "photographer": zoo.init_weights_(photographer, generator).cuda()}
+    disc = MultiScaleDiscriminator(5, GAN_D_CONFIG, GAN_D_SCALES, generator=generator)
+    return mods, disc
+
+
+def gan_config(**extra):
+    """The training tool's step settings (args.py:138-154): color, depth
+    (L1) and mask (BCE) at 50, the mask beta prior at 1 (parameter 0.01),
+    the GAN term at 1, instance noise std 0.2, the discriminator on color,
+    depth and mask; the camera distance is its auto_camera_dist for 640x480
+    renders."""
+    from latentfusion_tpu_torch.recon.utils import optimal_camera_dist
+
+    return dict(camera_dist=optimal_camera_dist(615.0, 480, 3 ** 0.5 / 2, slack=0.1),
+                random_orientation=False, discriminator_input_color=True,
+                discriminator_input_depth=True, discriminator_input_mask=True,
+                g_gan_loss_weight=1.0, g_color_recon_loss_weight=50.0,
+                g_color_recon_loss_type="l1", g_color_recon_loss_k=2000,
+                g_depth_recon_loss_weight=50.0, g_depth_recon_loss_type="l1",
+                g_depth_recon_loss_k=2000, g_mask_recon_loss_weight=50.0,
+                g_mask_beta_loss_weight=1.0, g_mask_beta_loss_param=0.01,
+                input_noise_std=0.2, **extra)
+
+
+def gan_grads(step, mods, disc, batch, seed, noise_weight, rotations=None):
+    """One step's generator loss and the generator's and the
+    discriminator's gradients ("discriminator." names), with both
+    optimizers SGD at learning rate 0 and the noise drawn from a generator
+    seeded with ``seed``."""
+    from latentfusion_tpu_torch.train import step as tstep
+
+    sgd = tstep.make_optimizer("sgd", 0.0)
+    state = tstep.init_gan_train_state(mods, sgd, disc, sgd if disc is not None else None)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    _, scalars = step(state, batch, g, rotations, noise_weight)
+    nets = dict(mods, **({"discriminator": disc} if disc is not None else {}))
+    return scalars["loss/generator/total"], {
+        f"{name}.{pname}": p.grad.clone() for name, m in nets.items()
+        for pname, p in m.named_parameters()}
+
+
+def phase_option_shapes(fused_sample, seed):
+    """K1-fwd and K1-bwd-vol against their plain versions at every shape of
+    phase 11's paths: at flagship width the render of 128, a build of 16
+    views (the Sculptor's camera intermediates of 128 and 256 channels and
+    the Blend weights at one channel), the skip-connection decode of the
+    16 views, and a training microbatch (4 objects x 8 input views: the
+    Sculptor's sampling and the Blend weights; 4 objects x 32 views decoded
+    with the input views reconstructed); and the training tool's default
+    architecture, whose camera volumes are 32^3 (its microbatch: 4 objects
+    x TRAIN_IN input and TRAIN_OUT output views). Returns the rows and the
+    (op, volume, grids) held, which phase 11 checks its K1 calls against."""
+    from latentfusion_tpu_torch import transforms, zoo
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.recon.utils import process_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    objects = TRAIN_BATCH // TRAIN_MICROBATCHES
+    obs = reference_views(0, dev)
+    zoomed = obs.camera.zoom(None, zoo.FLAGSHIP_INPUT_SIZE, CAMERA_DIST)
+    build = transforms.camera_to_object_grid(zoomed, 16)
+    skip = transforms.object_to_camera_grid(zoomed, 16)
+    render = transforms.object_to_camera_grid(
+        hypothesis_cameras(obs, zoo.FLAGSHIP_INPUT_SIZE, CAMERA_DIST, g), 16)
+    del obs, zoomed
+    proc = process_batch(train_batch(g, objects), 1.0, train_config()["camera_dist"],
+                         zoo.FLAGSHIP_INPUT_SIZE, generator=g)
+    recon = Camera.vcat((proc["in_gt"]["camera"], proc["out_gt"]["camera"]),
+                        batch_size=objects)
+    grids = {"build": build, "skip": skip, "render": render,
+             "train_encode": transforms.camera_to_object_grid(proc["in"]["camera"], 16),
+             "train_recon": transforms.object_to_camera_grid(recon, 16)}
+    del proc, recon
+    gan = process_batch(train_batch(g, objects), 1.0,
+                        gan_config()["camera_dist"], GAN_INPUT_SIZE, random_orientation=False)
+    grids["gan_encode"] = transforms.camera_to_object_grid(gan["in"]["camera"], GAN_LATENT_SIZE)
+    grids["gan_decode"] = transforms.object_to_camera_grid(gan["out_gt"]["camera"],
+                                                           GAN_LATENT_SIZE)
+    del gan
+    n_in = objects * TRAIN_IN
+    n_gan = objects * TRAIN_IN
+    cases = (("fwd", "render of 128", 1, 256, "render"),
+             ("fwd", "Sculptor camera->object, build of 16 views", 16, 128, "build"),
+             ("fwd", "Sculptor camera->object, build of 16 views", 16, 256, "build"),
+             ("fwd", "Blend weights, build of 16 views", 16, 1, "build"),
+             ("fwd", "skip-connection decode of 16 views", 16, 256, "skip"),
+             ("bwd_vol", "skip-connection decode of 16 views", 16, 256, "skip"),
+             ("fwd", "Blend weights, training microbatch", n_in, 1, "train_encode"),
+             ("bwd_vol", "Blend weights, training microbatch", n_in, 1, "train_encode"),
+             ("fwd", "Sculptor camera->object, training microbatch", n_in, 128, "train_encode"),
+             ("fwd", "Sculptor camera->object, training microbatch", n_in, 256, "train_encode"),
+             ("bwd_vol", "Sculptor camera->object, training microbatch", n_in, 256,
+              "train_encode"),
+             ("fwd", "decode with the input views, training microbatch", objects, 256,
+              "train_recon"),
+             ("bwd_vol", "decode with the input views, training microbatch", objects, 256,
+              "train_recon"),
+             ("fwd", "tool default: Sculptor camera->object at 32^3", n_gan, 128, "gan_encode"),
+             ("bwd_vol", "tool default: Sculptor camera->object at 32^3", n_gan, 128,
+              "gan_encode"),
+             ("fwd", "tool default: decode at 32^3", objects, 256, "gan_decode"),
+             ("bwd_vol", "tool default: decode at 32^3", objects, 256, "gan_decode"))
+    rows = []
+    for op, label, nv, c, key in cases:
+        grid = grids[key]
+        size = grid.shape[1]
+        vol = torch.randn(nv, c, size, size, size, generator=g, device=dev)
+        gout = (None if op == "fwd" else
+                torch.randn(grid.shape[0], c, *grid.shape[1:4], generator=g, device=dev))
+        rows.append(k1_at(fused_sample, op, label, vol, grid, gout))
+        del vol, gout
+        torch.cuda.empty_cache()
+    del grids, grid
+    torch.cuda.empty_cache()
+    return rows, {(r["op"], tuple(r["vol"]), r["grids"]) for r in rows}
+
+
+def k2_at_shapes(lrelu_pnorm, shapes, seed) -> dict:
+    """K2-fwd and K2-bwd against their plain versions at each shape of
+    ``shapes``, fp32, on N(0, 1) inputs with every fourth site zero in all
+    channels (a masked-out pixel through a zero bias: PixelNorm of a zero
+    vector, inv 1/sqrt(eps)), each kernel run twice for the same bits.
+    Returns the largest relative error of each."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape in shapes:
+        x = torch.randn(shape, generator=g, device="cuda")
+        x.view(shape[0], shape[1], -1)[:, :, ::4] = 0.0
+        gy = torch.randn(shape, generator=g, device="cuda")
+        (y, inv), (y2, _) = (lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8) for _ in range(2))
+        y_p, inv_p = lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8)
+        dx, dx2 = (lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2) for _ in range(2))
+        dx_p = lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv_p, gy, 0.2)
+        torch.cuda.synchronize()
+        errs = {"fwd": rel_err(y, y_p), "bwd": rel_err(dx, dx_p)}
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        if not (max(errs.values()) <= FP32_TOL and torch.equal(y, y2) and torch.equal(dx, dx2)):
+            fail(f"K2 at {shape} with zero sites disagrees with plain or repeats other "
+                 f"bits: {errs}")
+        del x, gy, y, y2, y_p, inv, inv_p, dx, dx2, dx_p
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_k1_shapes(label, calls, held) -> None:
+    say(f"  K1 calls in {label} (op, volume, grids: calls): "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}")
+    missing = [k for k in calls if k not in held]
+    if missing:
+        fail(f"{label}: K1 ran at shapes phase 2 did not hold: {missing}")
+
+
+@contextlib.contextmanager
+def near_zero_sites(lrelu_pnorm, counts: dict):
+    """Count K2-fwd's sites (a pixel or voxel across its channels) and those
+    whose PixelNorm scale 1 / sqrt(mean x^2 + eps) exceeds NEAR_ZERO_INV
+    into ``counts`` ("sites", "near_zero")."""
+    fwd = lrelu_pnorm.lrelu_pixel_norm_fwd
+
+    def spy(x, slope, eps):
+        y, inv = fwd(x, slope, eps)
+        counts["sites"] = counts.get("sites", 0) + inv.numel()
+        counts["near_zero"] = counts.get("near_zero", 0) + int((inv > NEAR_ZERO_INV).sum())
+        return y, inv
+
+    with mock.patch.object(lrelu_pnorm, "lrelu_pixel_norm_fwd", spy):
+        yield
+
+
+def first_call_counted(fn, lrelu_pnorm, counts: dict):
+    """``fn`` with its first call's near-zero PixelNorm sites counted."""
+    calls = []
+
+    def run():
+        calls.append(None)
+        if len(calls) > 1:
+            return fn()
+        with near_zero_sites(lrelu_pnorm, counts):
+            return fn()
+    return run
+
+
+def snapshot(nets) -> tuple:
+    """(parameters, gradients) of every named parameter of ``nets``, on the host."""
+    named = [(f"{n}.{k}", p) for n, m in nets.items() for k, p in m.named_parameters()]
+    return ({k: p.detach().cpu() for k, p in named},
+            {k: p.grad.detach().cpu() for k, p in named if p.grad is not None})
+
+
+def phase_gan(kernels, seed, held):
+    """Phase 11 (a): the training tool's default architecture with the
+    discriminator (``tool_models``) on phase 7's batches: TRAIN_BATCH
+    objects in TRAIN_MICROBATCHES microbatches of TRAIN_IN + TRAIN_OUT views
+    of 640x480, G and D on Adam (0, 0.99) at 1e-3.
+    At the initial weights, on one object, the gradient check (kernels vs
+    plain, G and D) with the backward-only floor, and the PixelNorm sites
+    near zero. Two steps from the same state and batch, each started with
+    the gradients, the optimizer state and the allocator's cache freed (at
+    this peak, a step started with the last one's Adam state still held gave
+    other bits, likely cuDNN's deterministic selection taking another
+    algorithm for want of workspace): the first timed by CUDA
+    events with its peak memory, the second profiled with its launches and
+    its K1 and K2 shapes recorded, the discriminator's device time read
+    from its trace, and gated to give the first's loss, gradient and
+    parameter bits. Every loss finite. Returns the launch counts of the
+    step."""
+    from torch import nn
+
+    from latentfusion_tpu_torch.train import step as tstep
+    from latentfusion_tpu_torch.utils import ExponentialScheduler
+
+    fused_sample, lrelu_pnorm = kernels
+    gen = torch.Generator().manual_seed(seed + 11)
+    mods, disc = tool_models(gen)
+    nets = dict(mods, discriminator=disc)
+    config = gan_config()
+    noise_weight = ExponentialScheduler(1.0, 1e-4, 1000).get(0)
+    args = (mods["sculptor"], mods["fuser"], mods["photographer"], disc)
+    step = tstep.make_recon_train_step(*args, config=config,
+                                       num_microbatches=TRAIN_MICROBATCHES)
+    step_one = tstep.make_recon_train_step(*args, config=config, num_microbatches=1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    t0 = time.perf_counter()
+    batch = train_batch(g)
+    one = train_batch(g, 1)
+    torch.cuda.synchronize()
+    say(f"  oracle batches of {TRAIN_BATCH} and 1 objects x ({TRAIN_IN} + {TRAIN_OUT}) views of "
+        f"640x480 rendered in {time.perf_counter() - t0:.2f} s")
+    params = sum(p.numel() for m in nets.values() for p in m.parameters())
+    say(f"  parameters: generator {sum(p.numel() for m in mods.values() for p in m.parameters())}"
+        f", discriminator {sum(p.numel() for p in disc.parameters())} ({params} in all)")
+
+    near = {}
+    gradient_check(
+        "GAN step on one object of the batch, at the initial weights",
+        first_call_counted(lambda: gan_grads(step_one, mods, disc, one, seed, noise_weight),
+                           lrelu_pnorm, near),
+        nn.ModuleList(nets.values()), kernels,
+        noise_only={f"discriminator.{k}" for k in disc.cancelled_parameters()}
+        | {f"photographer.{k}" for k in mods["photographer"].cancelled_parameters()},
+        ill_conditioned=True)
+    say(f"    K2-fwd sites (pixels or voxels) with inv > {NEAR_ZERO_INV:g} in that step: "
+        f"{near['near_zero']} of {near['sites']}")
+    del one
+
+    start_state = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                   for n, m in nets.items()}
+    adam = tstep.make_optimizer("adam", 1e-3)
+    runs, calls, k2 = [], {}, {}
+    for run in ("timed", "profiled"):
+        state = None
+        for n, m in nets.items():
+            m.load_state_dict(start_state[n])
+            m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = tstep.init_gan_train_state(mods, adam, disc, adam)
+        holder = {}
+
+        def one_step():
+            holder.update(scalars=step(state, batch, torch.Generator(device="cuda").manual_seed(
+                seed), None, noise_weight)[1])
+
+        if run == "timed":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            one_step()
+            end.record()
+            torch.cuda.synchronize()
+            step_ms, peak_gb = start.elapsed_time(end), torch.cuda.max_memory_allocated() / 1e9
+        else:
+            reset_counters(kernels)
+            say("  the same GAN step, device time by kernel:")
+            averages, events = profile_step(lambda: calls.update(record_k1(
+                fused_sample, lambda: k2.update(shapes=record_step(
+                    one_step, keep_resizes=False)[0]))))
+            counts = read_counters(kernels)
+        runs.append((snapshot(nets), {k: float(v) for k, v in holder["scalars"].items()}))
+    state = None
+    del start_state
+
+    def parted(a, b):
+        (params_a, grads_a), scalars_a = a
+        (params_b, grads_b), scalars_b = b
+        names = [k for k in params_a if not (torch.equal(params_a[k], params_b[k]) and (
+            grads_a.keys() == grads_b.keys() and (k not in grads_a
+                                                  or torch.equal(grads_a[k], grads_b[k]))))]
+        return names + [k for k in scalars_a if scalars_a[k] != scalars_b[k]]
+
+    parted_runs = parted(runs[0], runs[1])
+    scalars = runs[0][1]
+    del runs
+    total = sum(e.self_device_time_total for e in averages
+                if e.device_type == DeviceType.CUDA) / 1e3
+    d_ms = range_device_ms(events, tstep.DISCRIMINATOR_RANGE)
+    del averages, events
+    losses = {k.split("loss/")[-1]: v for k, v in scalars.items()}
+    say(f"  GAN step (global batch {TRAIN_BATCH}, {TRAIN_MICROBATCHES} microbatches, Adam) "
+        f"{step_ms:.1f} ms (CUDA events), peak memory {peak_gb:.2f} GB (max_memory_allocated, "
+        f"the batch included); device time in the profiled step {total:.1f} ms, the "
+        f"discriminator's ops and their backward {d_ms:.1f} ms ({d_ms / total:.4f} of it); "
+        f"the profiled step the timed one's loss, gradient and parameter bits "
+        f"{not parted_runs} ({len(parted_runs)} parted"
+        f"{', first ' + parted_runs[0] if parted_runs else ''}); launches "
+        f"{json.dumps(counts)}; losses {json.dumps(losses)}")
+    check_k1_shapes("one GAN step", calls, held)
+    if parted_runs:
+        fail("GAN step: two steps from the same state and batch gave other bits")
+    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+        fail(f"GAN step: a kernel was not launched on the step: {counts}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail("GAN step: a loss is not finite")
+    k2_errs = k2_at_shapes(lrelu_pnorm, sorted(k2["shapes"]), seed)
+    say(f"  K2 calls in one GAN step by shape (forward, backward): "
+        f"{json.dumps({str(k): v for k, v in sorted(k2['shapes'].items())})}; K2-fwd and K2-bwd "
+        f"at each, a quarter of the sites zero, against plain: largest rel err "
+        f"{json.dumps(k2_errs)} (tol {FP32_TOL}), twice the same bits")
+    del batch, mods, disc, nets
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_options(kernels, seed, held):
+    """Phase 11 (b): the options at the flagship width. The Blend and LSTM
+    fusers each build o0 from 16 views and render 128 hypotheses (phase 3's
+    rig, against the plain versions); one Blend training step (phase 7's
+    batch, generator_input_depth, reconstruct_input, RMSprop) and the same
+    step with remat: the same gradient and parameter bits, peak memory of
+    each; skip connections: the 16 views decoded at their own cameras from
+    the Sculptor's intermediates, forward and backward, against the plain
+    versions. Every K1 call recorded must be a shape phase 2 held. Returns
+    the launch counts by path."""
+    from torch import nn
+
+    from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.augment import gan_normalize
+    from latentfusion_tpu_torch.recon import fusion
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+    from latentfusion_tpu_torch.recon.models import Photographer, Sculptor
+    from latentfusion_tpu_torch.three import quaternion
+    from latentfusion_tpu_torch.train import step as tstep
+
+    fused_sample = kernels[0]
+    gen = torch.Generator().manual_seed(seed + 14)
+    sculptor = zoo.flagship_sculptor(generator=gen)
+    photographer = zoo.flagship_photographer(generator=gen)
+    out = {}
+    for label, fuser in (("blend", fusion.get_fuser("blend", 256, 1.0,
+                                                    block_config=OPTION_UNET3D_CONFIG,
+                                                    generator=gen)),
+                         ("lstm", fusion.get_fuser("lstm", 256, 1.0, generator=gen))):
+        model = LatentFusionModel(sculptor, None, fuser, None, photographer, None,
+                                  camera_dist=CAMERA_DIST)
+        counts = {}
+        calls = record_k1(fused_sample, lambda: counts.update(
+            drive_slice(f"{label} fuser", model, [("o0", 0)], kernels, seed, profile=False)))
+        check_k1_shapes(f"the {label} build and render", calls, held)
+        out[f"{label}_build_render"] = counts["o0"]
+        del model, fuser
+    torch.cuda.empty_cache()
+
+    # One Blend training step from the same state, without and with remat.
+    kw = dict(in_size=zoo.FLAGSHIP_INPUT_SIZE, image_config=zoo.SCULPTOR_IMAGE_CONFIG,
+              camera_config=zoo.SCULPTOR_CAMERA_CONFIG, object_config=zoo.SCULPTOR_OBJECT_CONFIG,
+              projection_type="factor", input_color=True, input_depth=True, input_mask=True,
+              cube_size=1.0, scale_mode="nearest")
+    mods = {"sculptor": zoo.init_weights_(Sculptor(**kw), gen).cuda(),
+            "fuser": fusion.get_fuser("blend", 256, 1.0, block_config=OPTION_UNET3D_CONFIG,
+                                      generator=gen),
+            "photographer": zoo.flagship_photographer(generator=gen)}
+    start_state = {n: {k: v.clone() for k, v in m.state_dict().items()} for n, m in mods.items()}
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    batch = train_batch(g)
+    rotations = [quaternion.random(1, g) for _ in range(TRAIN_MICROBATCHES)]
+    config = dict(train_config(), generator_input_depth=True, reconstruct_input=True)
+    results = {}
+    for remat in (False, True):
+        for n, m in mods.items():
+            m.load_state_dict(start_state[n])
+        step = tstep.make_recon_train_step(mods["sculptor"], mods["fuser"], mods["photographer"],
+                                           config=dict(config, remat=remat),
+                                           num_microbatches=TRAIN_MICROBATCHES)
+        state = tstep.init_train_state(mods, tstep.make_optimizer("rmsprop", 1e-3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(kernels)
+        holder = {}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        calls = record_k1(fused_sample, lambda: holder.update(scalars=step(
+            state, batch, torch.Generator(device="cuda").manual_seed(seed), rotations)[1]))
+        end.record()
+        torch.cuda.synchronize()
+        results[remat] = dict(
+            ms=start.elapsed_time(end), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            counts=read_counters(kernels), scalars=holder["scalars"],
+            grads={f"{n}.{k}": p.grad.clone() for n, m in mods.items()
+                   for k, p in m.named_parameters()},
+            params={f"{n}.{k}": p.detach().clone() for n, m in mods.items()
+                    for k, p in m.named_parameters()})
+        check_k1_shapes(f"the Blend training step{' with remat' if remat else ''}", calls, held)
+    plain, remat = results[False], results[True]
+    same_grads = all(torch.equal(plain["grads"][k], remat["grads"][k]) for k in plain["grads"])
+    same_params = all(torch.equal(plain["params"][k], remat["params"][k])
+                      for k in plain["params"])
+    losses = {k.split("loss/")[-1]: float(v) for k, v in plain["scalars"].items()}
+    say(f"  Blend training step (global batch {TRAIN_BATCH}, {TRAIN_MICROBATCHES} "
+        f"microbatches, {TRAIN_IN} + {TRAIN_OUT} views, the input views reconstructed, the "
+        f"noisy depth input, RMSprop): {plain['ms']:.1f} ms, peak memory "
+        f"{plain['peak_gb']:.2f} GB, launches {json.dumps(plain['counts'])}; with remat "
+        f"{remat['ms']:.1f} ms, peak {remat['peak_gb']:.2f} GB, launches "
+        f"{json.dumps(remat['counts'])}; the same gradient bits {same_grads}, the same "
+        f"parameters after RMSprop {same_params}; losses {json.dumps(losses)} (first "
+        f"step, not warmed up)")
+    if not (same_grads and same_params):
+        fail("Blend training step: remat gave other bits")
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail("Blend training step: a loss is not finite")
+    if not all(plain["counts"][k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+        fail(f"Blend training step: a kernel was not launched: {plain['counts']}")
+    out["blend_train_step"] = plain["counts"]
+    del results, plain, remat, mods, batch, start_state
+    torch.cuda.empty_cache()
+
+    # Skip connections: 16 views of o0 decoded at their own cameras.
+    model = LatentFusionModel(sculptor, None, zoo.flagship_fuser(generator=gen), None,
+                              photographer, None, camera_dist=CAMERA_DIST)
+    obs = model.preprocess_observation(reference_views(0, model.device))
+    skip = Photographer(in_size=zoo.FLAGSHIP_INPUT_SIZE // 16,
+                        image_config=zoo.PHOTOGRAPHER_IMAGE_CONFIG,
+                        camera_config=zoo.PHOTOGRAPHER_CAMERA_CONFIG, object_config=None,
+                        projection_type="factor", skip_connections=True, predict_color=False,
+                        predict_depth=True, predict_mask=True, cube_size=1.0,
+                        scale_mode="nearest")
+    skip = zoo.init_weights_(skip, gen).cuda()
+    with torch.no_grad():
+        z, z_cam_mid, z_obj_mid = sculptor(
+            torch.cat((obs.color, gan_normalize(obs.mask)), dim=1), obs.camera,
+            camera_intermediates=True)
+    # The one camera block reads the last intermediate only.
+    inputs = [z, z_cam_mid[-1]]
+    for t in inputs:
+        t.requires_grad_(True)
+    r = None
+
+    def grads_fn():
+        nonlocal r
+        logits, _, _ = skip(z, obs.camera, z_cam_mid, z_obj_mid)
+        if r is None:
+            r = torch.randn(logits.shape, generator=torch.Generator(device="cuda").manual_seed(
+                seed), device="cuda")
+        names = [f"photographer.{k}" for k, _ in skip.named_parameters()] + [
+            "z", "z_cam_mid.-1"]
+        loss = (logits * r).sum()
+        grads = torch.autograd.grad(loss, [p for _, p in skip.named_parameters()] + inputs)
+        return loss.detach(), dict(zip(names, grads))
+
+    reset_counters(kernels)
+    calls = record_k1(fused_sample, grads_fn)
+    out["skip_decode"] = read_counters(kernels)
+    check_k1_shapes("the skip-connection decode", calls, held)
+    say(f"  skip-connection decode of 16 views (z {tuple(z.shape)}, intermediates "
+        f"{[tuple(t.shape) for t in z_cam_mid]}), forward and backward: launches "
+        f"{json.dumps(out['skip_decode'])}")
+    if not all(out["skip_decode"][k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+        fail(f"skip connections: a kernel was not launched: {out['skip_decode']}")
+    gradient_check("skip-connection decode", grads_fn, skip, kernels)
+    del z, z_cam_mid, z_obj_mid, inputs, obs, model, skip, sculptor, photographer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2270,7 +2967,7 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/10: device, kernel build, reference views")
+    say("== phase 1/11: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
@@ -2299,7 +2996,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/10: kernels against their plain versions")
+    say("== phase 2/11: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -2307,14 +3004,16 @@ def main() -> None:
     records.update(train_records)
     k3 = phase_k3_shape(fused_sample, args.seed)
     new_rows, held = phase_new_shapes(fused_sample, args.seed)
+    option_rows, option_held = phase_option_shapes(fused_sample, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
     say(f"   K1 at K3's shape: {json.dumps(k3)}")
     say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
     say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
+    say(f"   K1 at phase 11's shapes: {json.dumps(option_rows)}")
 
-    say(f"== phase 3/10: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/11: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -2323,13 +3022,14 @@ def main() -> None:
     counts = drive_slice("flagship", flagship, objects, kernels, args.seed,
                          profile=True)
     say(f"   flagship launches per object: {json.dumps(counts)}")
+    build_launches(flagship, kernels)
 
-    say(f"== phase 4/10: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/11: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/10: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/11: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -2340,24 +3040,24 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/10: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/11: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "CEM, Metropolis, estimate_batch")
     accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/10: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/11: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/10: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/11: the pose service at flagship width, two rounds of requests")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round: {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/10: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/11: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -2365,12 +3065,14 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/10: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/11: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
     say(f"   reconstruction launches: {json.dumps(recon_counts)}; phase 10 took "
         f"{time.perf_counter() - t10:.1f} s on {smi}")
+
+    options = phase_eleven(kernels, args.seed, option_held, smi)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -2381,7 +3083,7 @@ def main() -> None:
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
-             "reconstruction": recon_counts}
+             "reconstruction": recon_counts, **options}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

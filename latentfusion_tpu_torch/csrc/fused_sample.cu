@@ -516,14 +516,16 @@ int launch_staged(const void* vol, const void* grid, void* out, int64_t nv,
   return (int)cudaGetLastError();
 }
 
-// 32 bytes a voxel where that tile fits in shared memory, else 4.
+// 32 bytes a voxel where that tile fits in shared memory and the volume
+// has more than one channel, else 4 (one fp32 channel a chunk: a
+// one-channel volume, the Blend fuser's weights, stages no zeros).
 template <typename VolT, typename OutT>
 int launch_staged_by_size(const void* vol, const void* grid, void* out,
                           int64_t nv, int64_t n, int64_t c, int d, int h,
                           int w, int64_t k, bool border, cudaStream_t stream) {
   const int64_t jp = ceil_div((int64_t)d * h * w, 32) * 32;
   const int ji = (int)jp;
-  if (jp * 32 <= kSmemMax)
+  if (jp * 32 <= kSmemMax && c > 1)
     return launch_staged<VolT, OutT, uint4, 2>(vol, grid, out, nv, n, c, d, h,
                                                w, ji, k, border, stream);
   if (jp * 4 <= kSmemMax)

@@ -43,6 +43,13 @@ def extract_features(layers, x, layer_names):
     return features
 
 
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope x. Its derivative
+    at exactly 0 is 1 (``F.leaky_relu``'s is ``slope``), which matters where
+    an input is exactly zero: a masked-out pixel through a zero bias."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 def absolute_max_pool(tensor: torch.Tensor, axis: int) -> torch.Tensor:
     """The element of largest magnitude along ``axis``, keeping the dim."""
     index = torch.argmax(tensor.abs(), dim=axis, keepdim=True)

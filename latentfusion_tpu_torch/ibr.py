@@ -142,8 +142,8 @@ def render_latent_ibr(photographer, z_obj, camera_in: Camera, camera_out: Camera
     reprojections) of the output views."""
     from .recon.models import decode
 
-    fake_in, _ = decode(photographer, z_obj, camera_in)
-    fake_out, _ = decode(photographer, z_obj, camera_out)
+    fake_in = decode(photographer, z_obj, camera_in)[0]
+    fake_out = decode(photographer, z_obj, camera_out)[0]
     image_ibr, image_reproj = render_ibr(camera_in, camera_out, image_in,
                                          fake_in["depth"], fake_out["depth"],
                                          p, weight_type, eps)
@@ -159,9 +159,9 @@ def render_latent_ibr2(photographer, z_obj, camera_in: Camera, camera_out: Camer
     ``apply_mask``). Returns (y, z_2d | None)."""
     from .recon.models import decode
 
-    y_in, _ = decode(photographer, z_obj, camera_in, apply_mask=apply_mask)
-    y_out, z_out = decode(photographer, z_obj, camera_out,
-                          return_latent=return_latent, apply_mask=apply_mask)
+    y_in = decode(photographer, z_obj, camera_in, apply_mask=apply_mask)[0]
+    y_out, z_out, _ = decode(photographer, z_obj, camera_out,
+                             return_latent=return_latent, apply_mask=apply_mask)
     image_ibr, _ = render_ibr(camera_in, camera_out, image_in, y_in["depth"],
                               y_out["depth"], p, weight_type, eps)
     y_out["color"] = image_ibr * (y_out["mask"] > 0.5) if apply_mask else image_ibr

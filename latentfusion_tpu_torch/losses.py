@@ -1,8 +1,4 @@
-"""Reconstruction losses (counterpart of ``latentfusion_tpu/losses.py``).
-
-Not ported yet: ``lsgan_loss`` and ``multiscale_lsgan_loss`` (the
-discriminator, ROADMAP.md Queue 1 item 5).
-"""
+"""Reconstruction and GAN losses (counterpart of ``latentfusion_tpu/losses.py``)."""
 from __future__ import annotations
 
 import math
@@ -51,6 +47,17 @@ def hard_pixel_loss(base_loss_fn, x, y, k: int, reduction="mean"):
     loss = loss.reshape(x.shape[0], -1)
     loss, _ = torch.topk(loss, min(k, loss.shape[1]), dim=1)
     return reduce_loss(loss, reduction)
+
+
+def lsgan_loss(input, target, reduction="mean"):
+    """Least-squares GAN loss of discriminator responses against ``target``
+    (1 real, 0 fake)."""
+    return reduce_loss((input.squeeze() - target) ** 2, reduction)
+
+
+def multiscale_lsgan_loss(inputs, target, reduction="mean"):
+    """``lsgan_loss`` summed over a multi-scale discriminator's responses."""
+    return sum(lsgan_loss(x, target, reduction) for x in inputs)
 
 
 def _log_beta(alpha: float, beta: float) -> float:

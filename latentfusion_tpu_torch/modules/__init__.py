@@ -49,5 +49,6 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 from .equalized import EqualizedConv  # noqa: E402,F401
 from .blocks import Block, InputBlock, OutputBlock, create_block_defs  # noqa: E402,F401
-from .unet import BaseUNet, UNet2d  # noqa: E402,F401
+from .unet import BaseUNet, UNet2d, UNet3d  # noqa: E402,F401
 from .gru import ConvGRUCell  # noqa: E402,F401
+from .lstm import ConvLSTMCell  # noqa: E402,F401

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..functional import leaky_relu
 from ..ops.interpolate import interpolate
 from .equalized import EqualizedConv
 
@@ -83,14 +84,14 @@ class InputBlock(nn.Module):
                                   ndim=ndim, stride=kernel_size)
 
     def forward(self, x):
-        return F.leaky_relu(self.conv(x), self.relu_slope)
+        return leaky_relu(self.conv(x), self.relu_slope)
 
 
 class OutputBlock(nn.Module):
     """1x1 conv head with an optional activation."""
 
     _ACTIVATIONS = {None: lambda x: x, "none": lambda x: x,
-                    "lrelu": lambda x: F.leaky_relu(x, 0.2),
+                    "lrelu": lambda x: leaky_relu(x, 0.2),
                     "relu": F.relu, "tanh": torch.tanh}
 
     def __init__(self, in_channels: int, out_channels: int, ndim: int = 2,
@@ -131,3 +132,27 @@ class Block(nn.Module):
             x = interpolate(x, scale_factor=self.scale_factor,
                             mode=self.scale_mode)
         return x
+
+
+class PreActivationBasicBlock(nn.Module):
+    """Pre-activation residual block that halves the resolution: leaky-ReLU,
+    conv, leaky-ReLU, conv, resize by 0.5, plus a 1x1 conv of the input
+    resized by 0.5. No shipped configuration uses it."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, relu_slope: float = 0.2,
+                 scale_mode: str = "bilinear", ndim: int = 2):
+        super().__init__()
+        self.relu_slope = relu_slope
+        self.scale_mode = scale_mode
+        self.conv1 = EqualizedConv(in_channels, out_channels, kernel_size,
+                                   ndim=ndim, stride=stride, padding=1)
+        self.conv2 = EqualizedConv(out_channels, out_channels, kernel_size,
+                                   ndim=ndim, padding=1)
+        self.shortcut = EqualizedConv(in_channels, out_channels, 1, ndim=ndim)
+
+    def forward(self, x):
+        shortcut = self.shortcut(interpolate(x, scale_factor=0.5, mode=self.scale_mode))
+        x = self.conv1(leaky_relu(x, self.relu_slope))
+        x = self.conv2(leaky_relu(x, self.relu_slope))
+        return interpolate(x, scale_factor=0.5, mode=self.scale_mode) + shortcut

@@ -54,7 +54,10 @@ class BaseUNet(nn.Module):
 
     @property
     def final_scale(self):
-        """(scale_factor, scale_mode) of the last up-block's resize, or None."""
+        """(scale_factor, scale_mode) of the last up-block's resize, or None
+        (also when the up config has no block)."""
+        if not len(self.up_blocks):
+            return None
         block = self.up_blocks[-1]
         if block.scale_factor in (None, 1.0):
             return None
@@ -104,3 +107,13 @@ class UNet2d(BaseUNet):
                  out_channels: Union[None, int, Sequence[int]],
                  block_config: Any):
         super().__init__(in_channels, out_channels, block_config, ndim=2)
+
+
+class UNet3d(BaseUNet):
+    """The 3D U-Net of the Blend fuser and the Photographer's occlusion
+    module: ``UNet3d(in_channels, out_channels, block_config)``."""
+
+    def __init__(self, in_channels: Optional[int],
+                 out_channels: Union[None, int, Sequence[int]],
+                 block_config: Any):
+        super().__init__(in_channels, out_channels, block_config, ndim=3)

@@ -54,7 +54,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PADDING = ("zeros", "border")
 # The staged kernels keep at least 4 bytes of every voxel, the voxels
 # rounded up to 32, in the 227 KB of shared memory a block may use; 32
-# bytes (8 fp32 channels) where those fit.
+# bytes (8 fp32 channels) where those fit (the forward: and the volume has
+# more than one channel).
 _SMEM_BYTES = 232448
 # d/dgrid's staged kernel: a block of 512 threads walks up to 8 samples a
 # thread, and takes an H100 SM to itself (its registers fill the register

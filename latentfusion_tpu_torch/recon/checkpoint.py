@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..modules.unet import UNet2d
-from .fusion import GRUFuser
+from .fusion import fuser_from_checkpoint_args
 from .models import Photographer, Sculptor
 
 
@@ -40,7 +40,8 @@ def from_jax_params(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
     """JAX parameters keyed by pytree path -> the port's ``state_dict``.
 
     A flax ``params`` level is dropped; other leading names (``sculptor``,
-    ``fuser``, ``photographer``, ``generator``) stay as key prefixes. ``name_<i>`` becomes
+    ``fuser``, ``photographer``, ``discriminator``, ``generator``) stay as
+    key prefixes. ``name_<i>`` becomes
     list indexing ``name.<i>``, and conv weights move under ``.module``.
     """
     state = {}
@@ -114,21 +115,43 @@ def patch_legacy_args(checkpoint: Mapping[str, Any]) -> Mapping[str, Any]:
     return checkpoint
 
 
+def _load(module, entry):
+    module.load_state_dict({k: torch.as_tensor(v) for k, v in
+                            entry.get("state_dict", {}).items()})
+    return module
+
+
 def modules_from_checkpoint(checkpoint: Mapping[str, Any]):
     """(sculptor, fuser, photographer) with their state dicts loaded from a
-    reference checkpoint dict ``{args, modules: {name: {args, state_dict}}}``."""
+    reference checkpoint dict ``{args, modules: {name: {args, state_dict}}}``;
+    the fuser is any of ``fusion.FUSER_TYPES`` by its ``type`` (GRU when a
+    legacy checkpoint names none)."""
     checkpoint = patch_legacy_args(checkpoint)
     mods = checkpoint["modules"]
-    if mods["fuser"].get("type", "GRUFuser") != "GRUFuser":
-        raise NotImplementedError(f"fuser {mods['fuser']['type']} is not ported")
-    out = []
-    for name, cls in (("sculptor", Sculptor), ("fuser", GRUFuser),
-                      ("photographer", Photographer)):
-        module = cls(**_filter_args(cls, mods[name]["args"]))
-        module.load_state_dict({k: torch.as_tensor(v) for k, v in
-                                mods[name]["state_dict"].items()})
-        out.append(module)
-    return tuple(out)
+    sculptor = Sculptor(**_filter_args(Sculptor, mods["sculptor"]["args"]))
+    fuser_args = dict(mods["fuser"].get("args") or {})
+    if fuser_args.get("block_config"):
+        fuser_args["block_config"] = _to_block_config(fuser_args["block_config"])
+    fuser = fuser_from_checkpoint_args(mods["fuser"].get("type", "GRUFuser"), fuser_args)
+    photographer = Photographer(**_filter_args(Photographer,
+                                               mods["photographer"]["args"]))
+    return tuple(_load(m, mods[name]) for m, name in (
+        (sculptor, "sculptor"), (fuser, "fuser"), (photographer, "photographer")))
+
+
+def discriminator_from_checkpoint(checkpoint: Mapping[str, Any], device="cuda"):
+    """The multi-scale discriminator of a checkpoint dict with its state
+    dict loaded, on ``device``; None when the checkpoint has none or its
+    args say ``no_discriminator``."""
+    from ..pggan import MultiScaleDiscriminator
+
+    entry = checkpoint.get("modules", {}).get("discriminator")
+    if entry is None or checkpoint.get("args", {}).get("no_discriminator", False):
+        return None
+    args = dict(entry["args"])
+    if args.get("block_config"):
+        args["block_config"] = _to_block_config(args["block_config"])
+    return _load(MultiScaleDiscriminator(**args, device=device), entry)
 
 
 def generator_from_checkpoint(checkpoint: Mapping[str, Any]):

@@ -116,8 +116,9 @@ class LatentFusionModel:
         """Decode one latent object at every camera of ``camera`` (already
         zoomed) with autograd on: the pose estimators' render. Returns
         (y, z_2d | None) with ``y`` entries (1, N, ...)."""
-        return models.decode(self.photographer, z_obj, camera,
-                             return_latent=return_latent, apply_mask=apply_mask)
+        y, z, _ = models.decode(self.photographer, z_obj, camera,
+                                return_latent=return_latent, apply_mask=apply_mask)
+        return y, z
 
     @torch.no_grad()
     def render_latent_object(self, z_obj: torch.Tensor, camera: Camera,
@@ -125,8 +126,8 @@ class LatentFusionModel:
                              apply_mask: bool = True):
         """Render one latent object from every camera of ``camera`` (already
         zoomed). Returns (y, z_2d) with ``y`` entries (1, N, ...)."""
-        y, z = models.decode(self.photographer, z_obj, camera,
-                             return_latent=return_latent, apply_mask=apply_mask)
+        y, z, _ = models.decode(self.photographer, z_obj, camera,
+                                return_latent=return_latent, apply_mask=apply_mask)
         return y, (z.squeeze(0) if return_latent else None)
 
     @torch.no_grad()
@@ -211,9 +212,9 @@ class LatentFusionModel:
         reprojected depth's background at -1). Returns the output decode and
         latent, then view-folded: reprojected color and depth, output mask
         and depth, rotation and position distances."""
-        y_in, _ = models.decode(self.photographer, z_obj, camera_in)
-        y_out, z_out = models.decode(self.photographer, z_obj, camera_out,
-                                     return_latent=return_latent)
+        y_in, _, _ = models.decode(self.photographer, z_obj, camera_in)
+        y_out, z_out, _ = models.decode(self.photographer, z_obj, camera_out,
+                                        return_latent=return_latent)
         mask_out = y_out["mask"]
         image_reproj, depth_reproj, cam_dist_r, cam_dist_t = ibr.reproject_views_batch(
             color_in[None], y_in["depth"], y_out["depth"], camera_in, camera_out)

@@ -49,7 +49,11 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/png.py",
             "latentfusion_tpu_torch/three/stats.py",
             "latentfusion_tpu_torch/three/utils.py",
-            "latentfusion_tpu_torch/three/host.py"} <= names
+            "latentfusion_tpu_torch/three/host.py",
+            "latentfusion_tpu_torch/recon/fusion.py",
+            "latentfusion_tpu_torch/modules/lstm.py",
+            "latentfusion_tpu_torch/pggan/__init__.py",
+            "latentfusion_tpu_torch/pggan/discriminator.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -160,3 +164,56 @@ def test_reconstruction_entry_points_raise_without_gpu(no_gpu, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Camera.from_kwargs(cam.to_kwargs())
     assert Observation.load(tmp_path / "obs", device="cpu").color.device.type == "cpu"
+
+
+def test_model_option_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The fusers, a checkpoint with a non-GRU fuser, the discriminator and
+    the GAN step's state go to the GPU unless asked for the CPU."""
+    from latentfusion_tpu_torch.pggan import MultiScaleDiscriminator
+    from latentfusion_tpu_torch.recon import checkpoint, fusion
+    from latentfusion_tpu_torch.train import step
+
+    for fuser_type in ("pool:max", "concat", "blend", "gru", "lstm"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fusion.get_fuser(fuser_type, 4, 1.0, block_config=((4, "D", 4), (4, "U", 4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiScaleDiscriminator(5)
+    sc, fu, ph = (zoo.tiny_sculptor(device="cpu"), zoo.tiny_fuser(device="cpu"),
+                  zoo.tiny_photographer(device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        step.init_gan_train_state({"sculptor": sc, "fuser": fu, "photographer": ph},
+                                  step.make_optimizer("adam"))
+    payload = {"args": {"camera_dist": 1.5, "no_discriminator": False},
+               "modules": {"sculptor": {"args": {"in_size": 16,
+                                                 "image_config": [[4, "D", 8], [8]],
+                                                 "camera_config": [4, 4],
+                                                 "object_config": [4, 4],
+                                                 "projection_type": "factor",
+                                                 "input_depth": False, "input_mask": True},
+                                        "state_dict": sc.state_dict()},
+                           "fuser": {"type": "PoolFuser", "args": {"pool_type": "max"}},
+                           "photographer": {"args": {"in_size": 8,
+                                                     "image_config": [[4, "D", 8],
+                                                                      [8, "U", 8, "U", 4]],
+                                                     "camera_config": [4, 4],
+                                                     "object_config": None,
+                                                     "projection_type": "factor",
+                                                     "predict_color": False,
+                                                     "predict_depth": True,
+                                                     "predict_mask": True},
+                                            "state_dict": ph.state_dict()},
+                           "discriminator": {"args": {"in_channels": 2, "block_config": [4, 8],
+                                                      "num_scales": 2},
+                                             "state_dict": MultiScaleDiscriminator(
+                                                 2, (4, 8), 2, device="cpu").state_dict()}}}
+    torch.save(payload, tmp_path / "pool.pth")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LatentFusionModel.from_checkpoint(tmp_path / "pool.pth")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.discriminator_from_checkpoint(payload)
+    model = LatentFusionModel.from_checkpoint(tmp_path / "pool.pth", device="cpu")
+    assert isinstance(model.fuser, fusion.PoolFuser)
+    disc = checkpoint.discriminator_from_checkpoint(payload, device="cpu")
+    assert disc.num_scales == 2 and next(disc.parameters()).device.type == "cpu"
+    payload["args"]["no_discriminator"] = True
+    assert checkpoint.discriminator_from_checkpoint(payload, device="cpu") is None

@@ -164,7 +164,8 @@ def test_gru_fuser_matches(rng):
     tf.load_state_dict(to_state(params))
     y_j, _ = jf.apply(params, jnp.asarray(z), [], [], None)
     with torch.no_grad():
-        y_t = tf(torch.from_numpy(z))
+        y_t, extra = tf(torch.from_numpy(z), [], [], None)
+    assert extra == {}
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=NET_TOL, rtol=NET_TOL)
 
 
