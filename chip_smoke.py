@@ -156,9 +156,34 @@ line after it ends:
    its camera intermediates only for a fuser that reads them) and that the
    latent is the same bits as with them mapped.
 
+12. the data path: (a) tools/train_unseen_real.py's training stream
+   (:197-212) at phase 7's sizes: 32 lobe meshes of pool seed 0 (32 x 64 a
+   lobe), 48 procedural textures and 24 backgrounds (PNG), random
+   materials, textures and color backgrounds, mask corruption p 0.25, color
+   noise 0.05, size jitter (0.6, 1.0), 8 + 24 views of 640x480 an item,
+   global batch 8. The compiled rasterizer must agree with its numpy twin on
+   one view; the loader's items a second at 1 worker and at min(cpus, 16)
+   workers; a batch pinned and copied to the card, and its quantised
+   transport widened on the card, must equal the host's arrays bit for
+   bit (bytes per batch both ways). Then phase 7's flagship step (weights
+   N(0, 1) from --seed) on loader batches (the quantised transport): two
+   steps from the same state and batch the same loss and gradient bits; ms
+   per step on one held batch and fed by the loader; the device's idle
+   share over 3 loader-fed steps (torch.profiler), their launches (K1-fwd,
+   K1-bwd-vol, K2-fwd and K2-bwd must run) and K1 shapes (each one phase 2
+   held), every loss finite. (b) latentfusion_tpu_torch/unseen_real.py's
+   rig on artifacts/unseen_real/unseen_real.npz: held-out objects 0-3 of
+   lobe pool seed 7919 as meshes (48 x 96 a lobe) rasterized at the 16
+   reference and 6 target cameras of unseen_cameras.json, each target index
+   one ``estimate_batch`` at the record's budget (CEM 128 x 10, 48 elites,
+   refinement 16 x 150, latent ranking 0.2); at least 13 of 24 within 0.1d
+   (run 3's JAX record, 16, less 3), every K1 call a shape phase 2 held;
+   render seconds, seconds and peak memory per batch. ``--with-unseen``
+   runs (b) ungated at each of --accuracy-seeds too.
+
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phases 10 and 11's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10, 11 and 12's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -168,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -217,7 +243,7 @@ RECON_GENERATOR_CONFIG = ((64, "D", 128, "D", 256, "D", 512),
 # The published recipe (tools/train_reconstruct.py): global batch 8 in 2
 # microbatches, 8 input and 24 output views, 640x480 renders.
 TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
-TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 20, 10
+TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 12, 10
 TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
 # Phase 11 (a): the training tool's default architecture at input 256
 # (latentfusion_tpu/train/args.py:94-125): camera volumes and latent of 32^3.
@@ -242,7 +268,12 @@ REFINE_K2_CALLS = (((8, 256, 16, 16, 16), 2), ((8, 256, 16, 16), 3),
                    ((8, 64, 128, 128), 2))
 
 
+T_START = time.perf_counter()
+
+
 def say(*parts) -> None:
+    if parts and str(parts[0]).startswith("== phase"):
+        parts = (*parts, f"(at {time.perf_counter() - T_START:.1f} s)")
     print(*parts, flush=True)
 
 
@@ -703,7 +734,7 @@ def phase_train_kernels(fused_sample, seed):
             f"block, slices, blocks): ms {json.dumps(alts)}")
         rows[label] = dict(ms=ms, event_ms=events, bound_ms=b, plain_ms=plain,
                            library_ms=lib, plan=plan._asdict(), other_plans=alts,
-                           clipped=clipped_share(grid, shape[2:]))
+                           clipped=clipped_share(grid, shape[2:]), held=("bwd_vol", shape, n))
         if label == "decode":
             records["K1bv"] = dict(
                 name="fused_sample_bwd_vol", route="cuda",
@@ -2174,7 +2205,7 @@ def phase_train(kernels, seed):
     return counts
 
 
-def bwd_vol_in_step(fused_sample, run_step, steps: int = 4) -> None:
+def bwd_vol_in_step(fused_sample, run_step, steps: int = 2) -> None:
     """ms per training step (CUDA events) with K1-bwd-vol's tiled kernel
     and with the atomic kernel it replaced, taken in turns (tiled, atomic,
     atomic, tiled), ``steps`` steps a turn after a warm-up step."""
@@ -2397,7 +2428,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/11: the model options and the GAN training step: the training tool's "
+    say("== phase 11/12: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2408,6 +2439,363 @@ def phase_eleven(kernels, seed, held, smi) -> dict:
         f"{json.dumps(options)}; phase 11 took {time.perf_counter() - t11:.1f} s "
         f"((b) {t_options:.1f} s) on {smi}")
     return {"gan_step": gan_counts, **options}
+
+
+# Phase 12: the data path. (a) tools/train_unseen_real.py's stream
+# conditions (:197-212) at phase 7's sizes; (b) its held-out evaluation.
+DATA_SHAPES, DATA_WORKERS_MAX = 32, 16
+DATA_STEPS = 3  # loader-fed steps timed, held-batch steps timed, loader-fed steps profiled
+# The JAX record that artifacts/unseen_real/unseen_real.npz reproduces (run
+# 3's held-out evaluation, run3/pose_eval.json; PERF.md §6), by object; run
+# 2's (the top-level pose_eval.json) beside it.
+REAL_RECORD = {"run 3": [2, 5, 6, 3], "run 2": [6, 3, 4, 0]}
+REAL_GATE = sum(REAL_RECORD["run 3"]) - 3  # phase 9's margin of 3
+DATA_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "data"
+
+
+def tree_bytes(batch) -> int:
+    if isinstance(batch, dict):
+        return sum(tree_bytes(v) for v in batch.values())
+    return int(batch.nbytes) if isinstance(batch, np.ndarray) else batch.numel() * batch.element_size()
+
+
+def tree_equal(a, b) -> bool:
+    """Whether two batches (tensors or numpy arrays) hold the same dtypes,
+    shapes and bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(a[k], b[k]) for k in a)
+    a, b = (x.cpu() if torch.is_tensor(x) else torch.from_numpy(x) for x in (a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def idle_share(fn) -> dict:
+    """One call of ``fn`` profiled: the share of its window (first event to
+    last) in which no kernel or copy ran on the device, and the busy ms."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.time_range.end > e.time_range.start]
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    busy, reach = 0.0, start
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events
+                         if e.device_type == DeviceType.CUDA):
+        if hi > reach:
+            busy += hi - max(lo, reach)
+            reach = hi
+    return {"idle_share": 1.0 - busy / (end - start), "busy_ms": busy / 1e3,
+            "window_ms": (end - start) / 1e3}
+
+
+def _write_asset(job) -> None:
+    """One procedural texture or background written as PNG (a pool task)."""
+    from latentfusion_tpu_torch import png
+    from latentfusion_tpu_torch.data import synthetic
+
+    kind, i, path = job
+    make = synthetic.procedural_texture if kind == "texture" else synthetic.procedural_background
+    png.write_png(path, make(i))
+
+
+def data_assets():
+    """The lobe meshes (pool seed 0, DATA_SHAPES shapes, the tool's 32 x 64
+    a lobe), the 48 procedural textures and 24 color backgrounds of
+    ``make_procedural_textures`` and ``make_procedural_backgrounds`` (their
+    files, written by a pool of processes), under the gitignored build
+    directory."""
+    import multiprocessing
+
+    from latentfusion_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    textures, backgrounds = DATA_DIR / "textures", DATA_DIR / "backgrounds"
+    for d in (textures, backgrounds):
+        d.mkdir(parents=True, exist_ok=True)
+    jobs = ([("texture", i, textures / f"tex_{i:03d}.png") for i in range(48)]
+            + [("background", i, backgrounds / f"bg_{i:03d}.png") for i in range(24)])
+    with multiprocessing.get_context("fork").Pool(os.cpu_count()) as pool:
+        pending = pool.map_async(_write_asset, jobs)
+        pool_, _ = testing.sample_lobe_shapes(0, DATA_SHAPES, device="cpu")
+        meshes = testing.lobe_shape_meshes(pool_, DATA_DIR / "meshes")
+        pending.get()
+    say(f"  {len(meshes)} lobe meshes, 48 textures and 24 backgrounds written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return meshes, textures, backgrounds
+
+
+def data_dataset(meshes, textures, backgrounds, seed):
+    """tools/train_unseen_real.py's stream (:197-212) at phase 7's views and
+    frame: random materials and textures, random color backgrounds, mask
+    corruption p 0.25, color noise 0.05, size jitter (0.6, 1.0), no clean
+    input group."""
+    from latentfusion_tpu_torch.data import synthetic
+
+    return synthetic.SyntheticDataset(
+        meshes, num_input_views=TRAIN_IN, num_output_views=TRAIN_OUT, width=640, height=480,
+        size_jitter=(0.6, 1.0), random_materials=True, use_textures=True,
+        textures_dir=textures, color_random_background=True,
+        color_background_dir=backgrounds, mask_noise_p=0.25, color_noise_level=0.05,
+        seed=seed, emit_in_gt=False)
+
+
+def loader_rate(dataset, workers: int, batch_size: int, batches: int):
+    """Items a second of a host loader (numpy batches in the quantised
+    transport) with ``workers`` processes, timed after its first batch
+    (which starts the workers); and that first batch."""
+    from latentfusion_tpu_torch.data import loader
+
+    feed = loader.IterableLoader(dataset, batch_size=batch_size, num_workers=workers,
+                                 prefetch_factor=2, device=None, transport="quantized",
+                                 decode=False)
+    try:
+        it = iter(feed)
+        first = next(it)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        rate = batches * batch_size / (time.perf_counter() - t0)
+    finally:
+        feed.shutdown()
+    return rate, first
+
+
+def rasterizer_check(meshes) -> dict:
+    """One 640x480 view of the first mesh, textured and lit with specular,
+    by the compiled rasterizer and by its numpy twin."""
+    from latentfusion_tpu_torch.data import rasterizer, rendering, synthetic
+
+    obj, _ = rendering.load_object(meshes[0])
+    ctx = rendering.SceneContext(obj, np.asarray(synthetic.INTRINSIC, np.float32))
+    rng = np.random.RandomState(0)
+    texture = rng.rand(64, 64, 3).astype(np.float32)
+    for mesh in obj.meshes:
+        mesh.texture, mesh.uv_scale = texture, 3.0
+    ctx.lights = [(np.asarray([1.0, -1.0, -2.0], np.float32), np.ones(3, np.float32), 8.0)]
+    ctx.specular, ctx.roughness = 0.4, 0.3
+    ctx.set_pose([0.05, -0.03, 2.2], [0.8, 0.3, -0.4, 0.2])
+    t0 = time.perf_counter()
+    color, depth, mask = rendering.Renderer(640, 480).render(ctx)
+    t1 = time.perf_counter()
+    pc, pd, _ = rendering.Renderer(640, 480, plain=True).render(ctx)
+    stats = rasterizer.agreement(color, depth, pc, pd)
+    stats.update(pixels=int(mask.sum()), ms=(t1 - t0) * 1e3,
+                 plain_ms=(time.perf_counter() - t1) * 1e3)
+    say(f"  rasterizer against its numpy twin, one 640x480 view ({stats['pixels']} pixels): "
+        f"{json.dumps(stats)} (bounds {json.dumps(rasterizer.AGREEMENT)})")
+    if not (stats["pixels"] > 1000 and rasterizer.agrees(stats)):
+        fail("data: the rasterizer disagrees with its numpy twin")
+    return stats
+
+
+def transfer_checks(encoded) -> dict:
+    """A quantised batch widened on the host, pinned and copied to the card
+    on a side stream, against the host's arrays; and the quantised batch
+    copied and widened on the card, against the host's widening."""
+    from latentfusion_tpu_torch.data import loader
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.Stream()
+    host = loader.decode_transport(encoded)
+    pinned = loader.tree_map(lambda a: torch.from_numpy(a).pin_memory(), host)
+    on_card = loader.to_device(pinned, dev, stream)
+    widened = loader.decode_transport(loader.to_device(loader.to_tensors(encoded), dev, stream))
+    stream.synchronize()
+    out = {"pinned_same_bits": tree_equal(on_card, host),
+           "quantized_same_bits": tree_equal(widened, host),
+           "bytes_per_batch": tree_bytes(host), "quantized_bytes_per_batch": tree_bytes(encoded)}
+    say(f"  transfers of a batch of {TRAIN_BATCH}: {json.dumps(out)}")
+    if not out["pinned_same_bits"]:
+        fail("data: the batch after the pinned copy to the card is not the host batch")
+    if not out["quantized_same_bits"]:
+        fail("data: the quantised batch widened on the card is not the host's widening")
+    return {"held": on_card, **out}
+
+
+def phase_data_training(kernels, seed, held, step_counts) -> dict:
+    """Phase 12 (a): the synthetic stream of meshes through the loader (the
+    quantised transport, as the tool's) into phase 7's flagship step.
+    ``step_counts``: phase 7's launches on one step. Returns the launches
+    of the loader-fed steps and the measurements."""
+    from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.data import loader
+    from latentfusion_tpu_torch.three import quaternion
+    from latentfusion_tpu_torch.train import step as tstep
+
+    meshes, textures, backgrounds = data_assets()
+    dataset = data_dataset(meshes, textures, backgrounds, seed)
+    rasterizer_check(meshes)
+    cpus = os.cpu_count()
+    workers = min(cpus, DATA_WORKERS_MAX)
+    rate_1, _ = loader_rate(dataset, 1, 1, 3)
+    rate_n, host = loader_rate(dataset, workers, TRAIN_BATCH, 2)
+    say(f"  os.cpu_count() {cpus}; loader items/s: 1 worker {rate_1:.2f}, {workers} workers "
+        f"{rate_n:.2f} (8 + 24 views of 640x480 an item)")
+    moved = transfer_checks(host)
+    held_batch = moved.pop("held")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    mods = {"sculptor": zoo.flagship_sculptor(generator=gen),
+            "fuser": zoo.flagship_fuser(generator=gen),
+            "photographer": zoo.flagship_photographer(generator=gen)}
+    step = tstep.make_recon_train_step(mods["sculptor"], mods["fuser"], mods["photographer"],
+                                       config=train_config(),
+                                       num_microbatches=TRAIN_MICROBATCHES)
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    rotations = [quaternion.random(1, g) for _ in range(TRAIN_MICROBATCHES)]
+    first, second = (train_grads(step, mods, held_batch, rotations) for _ in range(2))
+    parted = [k for k in first[1] if not torch.equal(first[1][k], second[1][k])]
+    same = bool(torch.equal(first[0], second[0])) and not parted
+    say(f"  two steps from the same state and loader batch: the same loss and gradient bits "
+        f"{same} ({len(parted)} parameters parted); loss {float(first[0]):.4f}")
+    if not same:
+        fail("data: two training steps on a loader batch gave other bits")
+    del first, second
+
+    adam = tstep.init_train_state(mods, tstep.make_optimizer("adam", 1e-3))
+    feed = loader.IterableLoader(dataset, batch_size=TRAIN_BATCH, num_workers=workers,
+                                 prefetch_factor=2, device=dev, transport="quantized")
+    losses = []
+    try:
+        batches = iter(feed)
+
+        def fed_steps(n):
+            for _ in range(n):
+                _, scalars = step(adam, next(batches), generator=g)
+                losses.append({k.split("/")[-1]: float(v) for k, v in scalars.items()})
+
+        fed_steps(1)  # starts the workers and warms the step
+        torch.cuda.synchronize()
+        walls = {"loader-fed": [], "held batch": []}
+
+        def timed(label, run):
+            for _ in range(DATA_STEPS):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls[label].append((time.perf_counter() - t0) * 1e3)
+
+        timed("loader-fed", lambda: fed_steps(1))
+        timed("held batch", lambda: step(adam, held_batch, generator=g))
+        reset_counters(kernels)
+        idle = {}
+        calls = record_k1(kernels[0], lambda: idle.update(idle_share(
+            lambda: fed_steps(DATA_STEPS))))
+        counts = read_counters(kernels)
+    finally:
+        feed.shutdown()
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    say(f"  ms per step (wall, synchronised): loader-fed {mean['loader-fed']:.1f} "
+        f"{json.dumps([round(x, 1) for x in walls['loader-fed']])}, held batch "
+        f"{mean['held batch']:.1f} {json.dumps([round(x, 1) for x in walls['held batch']])}")
+    say(f"  {DATA_STEPS} loader-fed steps profiled: device idle share {idle['idle_share']:.4f} "
+        f"(busy {idle['busy_ms']:.1f} of {idle['window_ms']:.1f} ms); launches "
+        f"{json.dumps(counts)} (phase 7's step: {json.dumps(step_counts)}); K1 calls (op, volume, "
+        f"grids: calls) {json.dumps({str(k): v for k, v in calls.items()})}")
+    say(f"  losses of the loader-fed steps: {json.dumps(losses)}")
+    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+        fail(f"data: a kernel was not launched on the loader-fed steps: {counts}")
+    missing = [k for k in calls if k not in held]
+    if missing:
+        fail(f"data: K1 ran at shapes phase 2 did not hold: {missing}")
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        fail("data: a loss of a loader-fed step is not finite")
+    del mods, adam, held_batch, step
+    torch.cuda.empty_cache()
+    return {"counts": counts, "items_per_s": {"1": rate_1, str(workers): rate_n},
+            "ms_per_step": mean, **idle, **moved}
+
+
+def phase_data_heldout(kernels, seed, held, checks=True) -> dict:
+    """Phase 12 (b): unseen_real.py's rig on artifacts/unseen_real/unseen_real.npz:
+    held-out objects 0-3 rasterized at the 16 reference and 6 target cameras,
+    each target index one estimate_batch at the record's budget with the
+    latent ranking term at 0.2; gated (``checks``) at REAL_GATE of 24."""
+    from latentfusion_tpu_torch import unseen_eval, unseen_real
+
+    dev = torch.device("cuda")
+    model = unseen_eval.build_model("demo", unseen_real.CHECKPOINT, dev, keys=unseen_real.KEYS)
+    ref_cams, target_cams = unseen_eval.load_cameras(16, UNSEEN_TARGETS, dev)
+    _, clouds, paths = unseen_real.pool_meshes(DATA_DIR, 0, UNSEEN_OBJECTS, True)
+    views, render_s = unseen_real.rasterized_views(paths, ref_cams, target_cams)
+    say(f"  rendered {UNSEEN_OBJECTS} x (16 + {UNSEEN_TARGETS}) views of 640x480 by the "
+        f"rasterizer in {render_s:.2f} s")
+    out = unseen_round("unseen_real.npz, rasterized views, latent ranking 0.2", model, views,
+                       clouds, {"latent": unseen_real.RANK_LATENT_WEIGHT}, seed, held, kernels)
+    hits = sum(out["hits"])
+    say(f"  held-out within 0.1d by object {out['hits']} ({hits} of "
+        f"{UNSEEN_OBJECTS * UNSEEN_TARGETS}); JAX's records on the TPU: "
+        f"{json.dumps(REAL_RECORD)} (gate {REAL_GATE}, run 3's count less 3)")
+    if checks and hits < REAL_GATE:
+        fail(f"unseen real: {hits} of {UNSEEN_OBJECTS * UNSEEN_TARGETS} held-out targets "
+             f"within 0.1d, fewer than {REAL_GATE}")
+    del model, views
+    torch.cuda.empty_cache()
+    out["render_s"] = render_s
+    return out
+
+
+def phase_data_shapes(fused_sample, seed):
+    """K1's kernels at phase 12's new shapes, against their plain versions:
+    the flagship training microbatch's decode (4 objects x 24 output views),
+    and the real-data rig's latent ranking term at the demo width (8^3, 128
+    channels): the Sculptor's camera->object sampling of the 4 targets and
+    of 4 objects x 16 hypotheses, forward and backward. Returns the rows and
+    the (op, volume, grids) held."""
+    from latentfusion_tpu_torch import transforms, zoo
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.recon.utils import process_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    objects = TRAIN_BATCH // TRAIN_MICROBATCHES
+    proc = process_batch(train_batch(g, objects), 1.0, train_config()["camera_dist"],
+                         zoo.FLAGSHIP_INPUT_SIZE, generator=g)
+    obs = reference_views(0, dev)
+    hyps = [hypothesis_cameras(obs, UNSEEN_INPUT_SIZE, CAMERA_DIST, g)[:16]
+            for _ in range(UNSEEN_OBJECTS)]
+    grids = {"decode": transforms.object_to_camera_grid(proc["out_gt"]["camera"], 16),
+             "targets": transforms.camera_to_object_grid(
+                 obs.camera[:UNSEEN_OBJECTS].zoom(None, UNSEEN_INPUT_SIZE, CAMERA_DIST), 8),
+             "hypotheses": transforms.camera_to_object_grid(Camera.cat(hyps), 8)}
+    del proc, obs, hyps
+    n_hyp = UNSEEN_OBJECTS * 16
+    cases = (("fwd", "training decode, microbatch", objects, 256, "decode"),
+             ("fwd", "unseen real latent: targets camera->object", UNSEEN_OBJECTS, 128,
+              "targets"),
+             ("fwd", "unseen real latent: hypotheses camera->object", n_hyp, 128, "hypotheses"),
+             ("bwd_grid", "unseen real latent: hypotheses camera->object", n_hyp, 128,
+              "hypotheses"),
+             ("bwd_vol", "unseen real latent: hypotheses camera->object", n_hyp, 128,
+              "hypotheses"))
+    rows = []
+    for op, label, nv, c, key in cases:
+        grid = grids[key]
+        size = grid.shape[1]
+        vol = torch.randn(nv, c, size, size, size, generator=g, device=dev)
+        gout = (None if op == "fwd" else
+                torch.randn(grid.shape[0], c, *grid.shape[1:4], generator=g, device=dev))
+        rows.append(k1_at(fused_sample, op, label, vol, grid, gout))
+        del vol, gout
+    del grids, grid
+    torch.cuda.empty_cache()
+    return rows, {(r["op"], tuple(r["vol"]), r["grids"]) for r in rows}
+
+
+def phase_twelve(kernels, seed, held, smi, step_counts=None) -> dict:
+    """Phase 12 (a) and (b); returns the launch counts by path."""
+    say("== phase 12/12: the data path: meshes, the rasterizer, augmentation and the loader "
+        "feeding the flagship training step; held-out objects of unseen_real.npz on "
+        "rasterized views")
+    t12 = time.perf_counter()
+    fed = phase_data_training(kernels, seed, held, step_counts)
+    t_fed = time.perf_counter() - t12
+    real = phase_data_heldout(kernels, seed, held)
+    say(f"   phase 12 launches: loader-fed steps {json.dumps(fed['counts'])}, held-out "
+        f"batches {json.dumps(real['counts'])}; phase 12 took {time.perf_counter() - t12:.1f} s "
+        f"((a) {t_fed:.1f} s) on {smi}")
+    return {"data_fed_train_steps": fed["counts"], "unseen_real_batches": real["counts"]}
 
 
 def build_launches(model, kernels) -> None:
@@ -2942,8 +3330,8 @@ def main() -> None:
                              "(CEM, Metropolis, estimate_batch) ungated at each seed, "
                              "print the hits and exit")
     parser.add_argument("--with-unseen", action="store_true",
-                        help="with --accuracy-seeds, also run phase 9's unseen-object rig "
-                             "ungated at each seed")
+                        help="with --accuracy-seeds, also run phase 9's and phase 12 (b)'s "
+                             "unseen-object rigs ungated at each seed")
     parser.add_argument("--unseen-latent-rank", action="store_true",
                         help="phase 9 also runs the rig with the latent ranking term at 0.2 "
                              "(ungated)")
@@ -2967,7 +3355,7 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/11: device, kernel build, reference views")
+    say("== phase 1/12: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
@@ -2992,11 +3380,14 @@ def main() -> None:
                                       latent_rank=args.unseen_latent_rank)
                 table[seed].update({f"unseen {k}": sum(v["hits"]) for k, v in passes.items()
                                     if k != "mid"})
-        say(f"   hits by seed (phase 6 of 8, phase 9 of 24), {smi}: {json.dumps(table)} "
+                say(f"== phase 12 (b) at seed {seed}")
+                table[seed]["unseen real"] = sum(
+                    phase_data_heldout(kernels, seed, None, checks=False)["hits"])
+        say(f"   hits by seed (phase 6 of 8, phases 9 and 12 of 24), {smi}: {json.dumps(table)} "
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/11: kernels against their plain versions")
+    say("== phase 2/12: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -3005,6 +3396,8 @@ def main() -> None:
     k3 = phase_k3_shape(fused_sample, args.seed)
     new_rows, held = phase_new_shapes(fused_sample, args.seed)
     option_rows, option_held = phase_option_shapes(fused_sample, args.seed)
+    data_rows, data_held = phase_data_shapes(fused_sample, args.seed)
+    data_held |= held | option_held | {row["held"] for row in bwd_vol_rows.values()}
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
@@ -3012,8 +3405,9 @@ def main() -> None:
     say(f"   K1-bwd-vol at the training shapes: {json.dumps(bwd_vol_rows)}")
     say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
     say(f"   K1 at phase 11's shapes: {json.dumps(option_rows)}")
+    say(f"   K1 at phase 12's shapes: {json.dumps(data_rows)}")
 
-    say(f"== phase 3/11: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/12: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -3024,12 +3418,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/11: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/12: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/11: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/12: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -3040,24 +3434,24 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/11: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/12: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "CEM, Metropolis, estimate_batch")
     accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/11: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/12: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/11: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/12: the pose service at flagship width, two rounds of requests")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round: {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/11: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/12: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -3065,7 +3459,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/11: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/12: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -3073,6 +3467,7 @@ def main() -> None:
         f"{time.perf_counter() - t10:.1f} s on {smi}")
 
     options = phase_eleven(kernels, args.seed, option_held, smi)
+    data = phase_twelve(kernels, args.seed, data_held, smi, train_counts)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -3083,7 +3478,7 @@ def main() -> None:
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
-             "reconstruction": recon_counts, **options}
+             "reconstruction": recon_counts, **options, **data}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

@@ -20,6 +20,70 @@ from .augment import gan_denormalize, gan_normalize
 from .camera import Camera
 
 
+def render_observation(renderer, scene, device="cuda") -> "Observation":
+    """Render ``scene`` (``data.rendering.SceneContext``) at its pose into a
+    one-frame Observation on ``device``."""
+    color, depth, mask = renderer.render(scene)
+    camera = Camera(scene.intrinsic, scene.extrinsic, width=renderer.width,
+                    height=renderer.height, device=device)
+    return Observation(np.moveaxis(color, -1, 0)[None], depth[None, None], mask[None, None],
+                       camera, object_scale=scene.obj.scale)
+
+
+def render_random_observations(renderer, scene, n, x_bound=(0.0, 0.0), y_bound=(0.0, 0.0),
+                               z_bound=(0.5, 0.5), disk_sample_quats=True, frame="default",
+                               generator=None, device="cuda") -> "Observation":
+    """``n`` renders of ``scene`` at random translations in the bounds and
+    sunflower-even (or uniform random) rotations drawn from ``generator``
+    (a CPU generator seeded 0 if None)."""
+    from . import three
+    from .three import quaternion as quat
+
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    translations = three.random_translation(n, x_bound, y_bound, z_bound, generator=g)
+    if disk_sample_quats:
+        quaternions = three.orientation.evenly_distributed_quats(n, generator=g)
+    else:
+        quaternions = quat.random(n, g)
+    observations = []
+    for trans, q in zip(translations.cpu().numpy(), quaternions.cpu().numpy()):
+        scene.set_pose(trans, q, frame=frame)
+        observations.append(render_observation(renderer, scene, device))
+    return Observation.collate(observations)
+
+
+def sample_eval_observations(renderer, scene, x_bound=(0, 0), y_bound=(0, 0),
+                             z_bound=(0.5, 0.5), rot_std_rad=None,
+                             trans_std_m=(0.01, 0.01, 0.05), generator=None, device="cuda"):
+    """A reference and a target render of ``scene``: the reference at a
+    random pose, the target turned from it by a random rotation of
+    ``rot_std_rad`` (redrawn while it exceeds 45 degrees, 16 times at most)
+    and moved by N(0, ``trans_std_m``). Draws from ``generator`` in that
+    order (a CPU generator seeded 0 if None)."""
+    import math
+
+    from . import three
+    from .three import quaternion as quat
+
+    if rot_std_rad is None:
+        rot_std_rad = math.pi / 12
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    ref_trans = three.random_translation(1, x_bound, y_bound, z_bound, generator=g)[0]
+    ref_quat = quat.random(1, g)[0]
+    scene.set_pose(ref_trans.cpu().numpy(), ref_quat.cpu().numpy())
+    ref_obs = render_observation(renderer, scene, device)
+
+    tar_quat = quat.perturb(ref_quat, rot_std_rad, g)
+    for _ in range(16):
+        if float(quat.angular_distance(tar_quat[None], ref_quat[None])[0, 0]) < math.pi / 4:
+            break
+        tar_quat = quat.perturb(ref_quat, rot_std_rad, g)
+    noise = torch.randn(3, generator=g, device=g.device)
+    tar_trans = ref_trans + noise * torch.tensor(trans_std_m, device=g.device)
+    scene.set_pose(tar_trans.cpu().numpy(), tar_quat.cpu().numpy())
+    return ref_obs, render_observation(renderer, scene, device)
+
+
 class Observation:
     def __init__(self, color, depth, mask, camera: Camera,
                  object_scale: float = 1.0, is_zoomed: bool = False,
@@ -40,6 +104,16 @@ class Observation:
                            self.depth if depth is None else depth,
                            self.mask if mask is None else mask,
                            self.camera if camera is None else camera, **meta)
+
+    @classmethod
+    def from_dataset(cls, dataset, inds=None, device="cuda") -> "Observation":
+        """Items ``inds`` (all if None) of a map-style dataset (``color``,
+        ``depth``, ``mask``, ``intrinsic``, ``extrinsic``), collated."""
+        from .data.loader import collate
+
+        if inds is None:
+            inds = range(len(dataset))
+        return cls.from_dict(collate([dataset[int(i)] for i in inds]), device=device)
 
     @classmethod
     def from_dict(cls, d, device="cuda") -> "Observation":

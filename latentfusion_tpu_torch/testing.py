@@ -2,7 +2,8 @@
 estimators' tests and accuracy rigs (counterpart of
 ``latentfusion_tpu/testing.py``): the ellipsoid oracle, and the multi-lobe
 objects of the unseen-object rig (``sample_lobe_shapes``,
-``render_lobe_shape``, ``lobe_shape_color``, ``MultiLobeOracleModel``).
+``render_lobe_shape``, ``lobe_shape_color``, ``MultiLobeOracleModel``) and
+their meshes for the mesh data path (``lobe_shape_meshes``).
 Closed-form ray casting, so the renders are exact and differentiable with
 respect to the camera.
 
@@ -301,6 +302,65 @@ def sample_lobe_shapes(seed: int, n_shapes: int, max_lobes: int = 4,
 def index_lobe_shape(pool: dict, k) -> dict:
     """Object ``k`` of a stacked pool."""
     return {name: arr[k] for name, arr in pool.items()}
+
+
+def _uv_sphere(lat: int, lon: int):
+    """A unit UV sphere (numpy): vertices (V, 3), faces (F, 3), uvs (V, 2),
+    on a (lat + 1) x (lon + 1) grid whose seam column is duplicated so that
+    each vertex has one UV; outward winding, degenerate pole faces left out."""
+    th = np.linspace(0.0, np.pi, lat + 1)
+    ph = np.linspace(0.0, 2 * np.pi, lon + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    verts = np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P), np.cos(T)],
+                     axis=-1).reshape(-1, 3)
+    uvs = np.stack([P / (2 * np.pi), 1.0 - T / np.pi], axis=-1).reshape(-1, 2)
+    idx = np.arange((lat + 1) * (lon + 1)).reshape(lat + 1, lon + 1)
+    a = idx[:-1, :-1].ravel()
+    b = idx[1:, :-1].ravel()
+    c = idx[1:, 1:].ravel()
+    d = idx[:-1, 1:].ravel()
+    faces = np.concatenate([np.stack([a, b, c], -1), np.stack([a, c, d], -1)], axis=0)
+    tri = verts[faces]
+    area = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    return verts, faces[area > 1e-12], uvs
+
+
+def lobe_shape_meshes(pool: dict, out_dir, lat: int = 32, lon: int = 64):
+    """Write every object of a lobe pool as a textured OBJ mesh
+    ``lobes_NNNN.obj`` (the same text as the JAX package writes) and return
+    the paths. Each active lobe is a UV sphere mapped as
+    ``sample_lobe_shapes`` maps its surface, with its own horizontal strip of
+    the texture; the z-buffer render of the closed lobes is the union's
+    visible surface. Inactive lobes (lobe 0 shrunk inside itself) are left
+    out."""
+    from pathlib import Path
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sph_v, sph_f, sph_uv = _uv_sphere(lat, lon)
+    centers, axes, rots = (pool[k].cpu().numpy() for k in ("centers", "axes", "rots"))
+    n_shapes, n_lobes = centers.shape[:2]
+    paths = []
+    for k in range(n_shapes):
+        path = out_dir / f"lobes_{k:04d}.obj"
+        with open(path, "w") as f:
+            f.write(f"# multi-lobe shape {k} ({n_lobes} lobes)\n")
+            offset = 0
+            for li in range(n_lobes):
+                if li > 0 and (np.allclose(centers[k, li], centers[k, 0])
+                               and np.allclose(axes[k, li], axes[k, 0] * 0.5)):
+                    continue
+                v = centers[k, li] + (sph_v * axes[k, li]) @ rots[k, li]
+                uv = sph_uv * np.asarray([1.0 / n_lobes, 1.0])
+                uv[:, 0] += li / n_lobes
+                for vv, tt in zip(v, uv):
+                    f.write(f"v {vv[0]:.6f} {vv[1]:.6f} {vv[2]:.6f}\n")
+                    f.write(f"vt {tt[0]:.6f} {tt[1]:.6f}\n")
+                for tri in sph_f + offset + 1:
+                    f.write(f"f {tri[0]}/{tri[0]} {tri[1]}/{tri[1]} {tri[2]}/{tri[2]}\n")
+                offset += len(v)
+        paths.append(path)
+    return paths
 
 
 class MultiLobeOracleModel:

@@ -172,15 +172,16 @@ def evaluate_batch(model, ref_obs, targets, points, budget, extra_weights=None,
     return rows, seconds
 
 
-def build_model(family: str, checkpoint, device="cuda") -> LatentFusionModel:
+def build_model(family: str, checkpoint, device="cuda", keys=None) -> LatentFusionModel:
     """The ``family``'s modules with the weights of an enumerated-leaf
-    checkpoint (``<stem>.npz`` with ``<stem>_keys.json`` beside it)."""
+    checkpoint (``<stem>.npz``, its leaves named by ``keys``, by default
+    ``<stem>_keys.json`` beside it)."""
     device = resolve_device(device)
     if family not in FAMILIES:
         raise ValueError(f"family {family!r} is not one of {FAMILIES}")
     checkpoint = Path(checkpoint)
-    state = split_state_dict(from_jax_params(load_params_npz(
-        checkpoint, checkpoint.with_name(f"{checkpoint.stem}_keys.json"))))
+    keys = checkpoint.with_name(f"{checkpoint.stem}_keys.json") if keys is None else keys
+    state = split_state_dict(from_jax_params(load_params_npz(checkpoint, keys)))
     modules = {"demo": (zoo.demo_sculptor, zoo.demo_fuser, zoo.demo_photographer),
                "mid": (zoo.mid_sculptor, zoo.mid_fuser, zoo.mid_photographer),
                "tiny": (zoo.tiny_sculptor, zoo.tiny_fuser, zoo.tiny_photographer)}[family]

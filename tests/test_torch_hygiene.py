@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``latentfusion_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or the JAX package, nor an image
-library the GPU machine lacks (imageio, PIL, cv2), and no entry point runs
-on the CPU unless asked to."""
+``chip_smoke.py``) imports JAX, flax or the JAX package, nor a library the
+GPU machine lacks (imageio, PIL, cv2, sklearn, trimesh), no entry point
+runs on the CPU unless asked to, and the host rasterizer raises when it
+cannot be built."""
 import ast
 from pathlib import Path
 
@@ -16,7 +17,8 @@ from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
 from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu", "imageio", "PIL", "cv2"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu", "imageio", "PIL", "cv2",
+             "sklearn", "trimesh"}
 
 
 def _port_files():
@@ -53,7 +55,22 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/recon/fusion.py",
             "latentfusion_tpu_torch/modules/lstm.py",
             "latentfusion_tpu_torch/pggan/__init__.py",
-            "latentfusion_tpu_torch/pggan/discriminator.py"} <= names
+            "latentfusion_tpu_torch/pggan/discriminator.py",
+            "latentfusion_tpu_torch/meshutils.py",
+            "latentfusion_tpu_torch/pointcloud.py",
+            "latentfusion_tpu_torch/unseen_real.py",
+            "latentfusion_tpu_torch/augment/__init__.py",
+            "latentfusion_tpu_torch/augment/cv_compat.py",
+            "latentfusion_tpu_torch/augment/masks.py",
+            "latentfusion_tpu_torch/augment/tensors.py",
+            "latentfusion_tpu_torch/data/__init__.py",
+            "latentfusion_tpu_torch/data/rasterizer.py",
+            "latentfusion_tpu_torch/data/rendering.py",
+            "latentfusion_tpu_torch/data/synthetic.py",
+            "latentfusion_tpu_torch/data/loader.py",
+            "latentfusion_tpu_torch/data/bop.py",
+            "latentfusion_tpu_torch/data/kinectfusion.py",
+            "latentfusion_tpu_torch/data/triplet.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -217,3 +234,38 @@ def test_model_option_entry_points_raise_without_gpu(no_gpu, tmp_path):
     assert disc.num_scales == 2 and next(disc.parameters()).device.type == "cpu"
     payload["args"]["no_discriminator"] = True
     assert checkpoint.discriminator_from_checkpoint(payload, device="cpu") is None
+
+
+def test_data_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The loader's device transfer and the real-data rig go to the GPU
+    unless asked for the CPU."""
+    from latentfusion_tpu_torch import unseen_real
+    from latentfusion_tpu_torch.data import loader
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loader.IterableLoader([], batch_size=1)
+    assert loader.IterableLoader([], batch_size=1, device="cpu").device.type == "cpu"
+    assert loader.IterableLoader([], batch_size=1, device=None).device is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        unseen_real.main(["--out", str(tmp_path)])
+
+
+def test_failed_rasterizer_build_raises(monkeypatch, tmp_path):
+    """No fallback: a compiler error or a missing compiler raises."""
+    from latentfusion_tpu_torch.data import rasterizer
+
+    broken = tmp_path / "rasterizer.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(rasterizer, "SOURCE", broken)
+    monkeypatch.setattr(rasterizer, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(rasterizer, "_LIB", None)
+    with pytest.raises(RuntimeError, match="building rasterizer.cpp failed"):
+        rasterizer.load_library()
+    with pytest.raises(RuntimeError, match="building"):
+        rasterizer.rasterize(np.zeros((3, 3), np.float32), np.zeros((1, 3), np.int32),
+                             np.eye(4), np.eye(3), 4, 4)
+    assert not list((tmp_path / "build").glob("*.tmp"))
+    monkeypatch.setattr(rasterizer.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CXX", raising=False)
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        rasterizer.load_library()
