@@ -36,7 +36,10 @@ line after it ends:
    step's render, autoencode decode and Sculptor camera->object sampling)
    and of phase 9 (the demo and mid families' 8^3 latents: 16 views'
    camera->object sampling, four objects' CEM render and refinement step),
-   each against its plain version, twice for the same bits, and timed.
+   each against its plain version, twice for the same bits, and timed;
+   and K1-fwd and K1-bwd-vol at phase 13's shapes (the recipe's decode and
+   encode at batch 8 in bf16 and fp32, train_ibr's fp32 encode and
+   decode), in their dtypes.
 3. flagship: for each reference object (o0 and o1, 16 rendered views of
    480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -166,12 +169,10 @@ line after it ends:
    workers; a batch pinned and copied to the card, and its quantised
    transport widened on the card, must equal the host's arrays bit for
    bit (bytes per batch both ways). Then phase 7's flagship step (weights
-   N(0, 1) from --seed) on loader batches (the quantised transport): two
-   steps from the same state and batch the same loss and gradient bits; ms
-   per step on one held batch and fed by the loader; the device's idle
-   share over 3 loader-fed steps (torch.profiler), their launches (K1-fwd,
-   K1-bwd-vol, K2-fwd and K2-bwd must run) and K1 shapes (each one phase 2
-   held), every loss finite. (b) latentfusion_tpu_torch/unseen_real.py's
+   N(0, 1) from --seed) on a loader batch (the quantised transport): two
+   steps from the same state and batch the same loss and gradient bits,
+   launching K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd at K1 shapes phase 2
+   held (the loader-fed steps are phase 13's). (b) latentfusion_tpu_torch/unseen_real.py's
    rig on artifacts/unseen_real/unseen_real.npz: held-out objects 0-3 of
    lobe pool seed 7919 as meshes (48 x 96 a lobe) rasterized at the 16
    reference and 6 target cameras of unseen_cameras.json, each target index
@@ -180,10 +181,31 @@ line after it ends:
    (run 3's JAX record, 16, less 3), every K1 call a shape phase 2 held;
    render seconds, seconds and peak memory per batch. ``--with-unseen``
    runs (b) ungated at each of --accuracy-seeds too.
+13. the trainer: (a) ``train_reconstruct.main`` on tools/train.sh's flags
+   verbatim (bf16 ``--use-amp``, batch 8, 8 + 24 views, the GRU fuser, no
+   discriminator, 5 workers) but for the dataset (phase 12's 32 lobe
+   meshes), the texture and background banks (tests/data/jpeg_bank, the
+   JAX package's procedural JPEGs) and 2 epochs of 2 batches; then
+   ``--resume`` from its epoch-latest checkpoint with ``--branch`` for one
+   epoch. Per iteration: the step's ms by CUDA events, ``time/data_load``,
+   launches (K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd must run, every K1 call
+   in bf16 at a shape phase 2 held in bf16); peak memory; every loss
+   finite; the device's idle share over 3 loader-fed iterations; the loss
+   of one loader batch in fp32 against bf16 (RECIPE_BF16_LOSS_TOL, the CPU
+   test's bound; the same bits fail); the exported ``.pth`` through ``LatentFusionModel.from_checkpoint``,
+   o0 built and 128 hypotheses rendered against the plain versions (as
+   phase 3). (b) ``train_ibr.main`` on that ``.pth`` at the tool's defaults
+   (blend_flow, the published generator config, the discriminator; batch 8
+   of 16 + 8 views), 2 iterations: ms, peak memory, launches, losses
+   finite (K1-fwd, K2-fwd and K2-bwd must run). (c) ``train_unseen_real.main``
+   with 8 workers, two chunks of 20 steps (demo family, 6 + 8 views of
+   256x192, 32 meshes), then the encoder-distill and unseen-objects rigs
+   (6 steps each, the first with one evaluation target): s per step, a
+   finite loss, each npz read back by the evaluation half's loader.
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phases 10, 11 and 12's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10-13's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -243,6 +265,9 @@ RECON_GENERATOR_CONFIG = ((64, "D", 128, "D", 256, "D", 512),
 # The published recipe (tools/train_reconstruct.py): global batch 8 in 2
 # microbatches, 8 input and 24 output views, 640x480 renders.
 TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
+# The kernels a step that trains the Sculptor must launch (phases 7, 11
+# (a) and (b), 12 (a), and 13's recipe and rigs).
+TRAIN_STEP_KERNELS = ("K1", "K1bv", "K2", "K2b")
 TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 12, 10
 TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
 # Phase 11 (a): the training tool's default architecture at input 256
@@ -846,23 +871,28 @@ def phase_k3_shape(fused_sample, seed):
     return out
 
 
-def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
-    """One K1 kernel ("fwd", "bwd_grid" or "bwd_vol") at one shape, fp32:
-    against its plain version, run twice for the same bits through the
-    kernel its counter names (staged or tiled: every volume here is 16^3 or 8^3),
-    then kernel, plain and library device ms and the bound. Returns the
-    row."""
+def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border",
+          dtype=torch.float32):
+    """One K1 kernel ("fwd", "bwd_grid" or "bwd_vol") at one shape, its
+    volume, output (fwd) or cotangent (bwd) in ``dtype``: against its plain
+    version, run twice for the same bits through the kernel its counter
+    names (staged or tiled: every volume here is 16^3 or 8^3), then kernel,
+    plain and library device ms and the bound. Returns the row."""
+    vol = vol.to(dtype) if op != "bwd_vol" else vol
+    gout = gout.to(dtype) if gout is not None else None
     nv, n, c = vol.shape[0], grid.shape[0], vol.shape[1]
     samples = grid[..., 0].numel()
     pad = {"zeros": 0, "border": 1}[padding]
     vol_n = vol.repeat_interleave(n // nv, dim=0) if op != "bwd_vol" else None
+    size = torch.tensor([], dtype=dtype).element_size()
     if op == "fwd":
         counter, plan = "LAUNCHES", fused_sample.fwd_kernel(vol.shape)
-        run = lambda: fused_sample.grid_sample_3d_fused(vol, grid, padding)
-        plain = lambda: fused_sample.grid_sample_3d_plain(vol, grid, padding)
+        run = lambda: fused_sample.grid_sample_3d_fused(vol, grid, padding, dtype)
+        plain = lambda: fused_sample.grid_sample_3d_plain(vol, grid, padding, dtype)
+        grid_lib = grid.to(dtype)
         lib = lambda: torch.nn.functional.grid_sample(
-            vol_n, grid, mode="bilinear", padding_mode=padding, align_corners=False)
-        nbytes = (vol.numel() + grid.numel() + n * c * grid[0, ..., 0].numel()) * 4
+            vol_n, grid_lib, mode="bilinear", padding_mode=padding, align_corners=False)
+        nbytes = (vol.numel() + n * c * grid[0, ..., 0].numel()) * size + grid.numel() * 4
         flops = 16.0 * c * samples + 40.0 * samples
     elif op == "bwd_grid":
         counter = "BWD_GRID_LAUNCHES"
@@ -871,7 +901,7 @@ def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
         plain = lambda: fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding)
         lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
             gout, vol_n, grid, 0, pad, False, [False, True])
-        nbytes = (gout.numel() + vol.numel() + 2 * grid.numel()) * 4
+        nbytes = (gout.numel() + vol.numel()) * size + 2 * grid.numel() * 4
         flops = 2.0 * 27 * gout.numel() + 60.0 * samples
     else:
         counter = "BWD_VOL_LAUNCHES"
@@ -879,8 +909,8 @@ def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
         run = lambda: fused_sample.grid_sample_3d_bwd_vol(grid, gout, vol.shape, padding)
         plain = lambda: fused_sample.grid_sample_3d_bwd_vol_plain(grid, gout, vol.shape,
                                                                   padding)
-        lib = lib_bwd_vol(vol.shape, grid, gout, padding)
-        nbytes = (gout.numel() + grid.numel() + vol.numel()) * 4
+        lib = lib_bwd_vol(vol.shape, grid, gout.float(), padding)
+        nbytes = gout.numel() * size + (grid.numel() + vol.numel()) * 4
         flops = 16.0 * gout.numel() + 40.0 * samples
     before = getattr(fused_sample, counter)
     out, again = run(), run()
@@ -889,18 +919,22 @@ def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border"):
     torch.cuda.synchronize()
     err, same = rel_err(out, ref), bool(torch.equal(out, again))
     b, by = bound_ms(nbytes, flops)
+    # A bf16 output rounds once after the fp32 sum: one rounding step apart
+    # where the two sum orders straddle a rounding boundary.
+    tol = BF16_TOL if op == "fwd" and dtype == torch.bfloat16 else FP32_TOL
     row = dict(op=op, path=label, vol=list(vol.shape), grids=n, padding=padding,
-               kernel=str(plan), max_abs_err=float((out - ref).abs().max()), rel_err=err,
+               dtype=str(dtype)[6:], kernel=str(plan),
+               max_abs_err=float((out.float() - ref.float()).abs().max()), rel_err=err,
                same_bits=same, ms=time_ms(run), plain_ms=time_ms(plain, iters=3),
                library_ms=time_ms(lib), bound_ms=b, bound_by=by)
     say(f"  K1-{op} {label}: vol {tuple(vol.shape)}, {n} grids of "
-        f"{'x'.join(map(str, grid.shape[1:4]))}, {padding} float32, "
-        f"{plan}: rel err {err:.3g} (tol {FP32_TOL:.3g}); run twice, same bits: {same}; "
+        f"{'x'.join(map(str, grid.shape[1:4]))}, {padding} {str(dtype)[6:]}, "
+        f"{plan}: rel err {err:.3g} (tol {tol:.3g}); run twice, same bits: {same}; "
         f"{row['ms']:.4f} ms, bound {b:.4f} ms ({by}), plain {row['plain_ms']:.3f} ms, "
         f"library {row['library_ms']:.4f} ms (device time)")
     if not served:
         fail(f"K1-{op} {label} did not go through its shared-memory kernel")
-    if not err <= FP32_TOL:
+    if not err <= tol:
         fail(f"K1-{op} {label} disagrees with plain")
     if not same:
         fail(f"K1-{op} {label} is not bit-reproducible")
@@ -1434,9 +1468,10 @@ def phase_pose_flagship(model, kernels, seed, k2_tables):
     return counts
 
 
-def record_k1(fused_sample, step_fn) -> dict:
+def record_k1(fused_sample, step_fn, dtypes: bool = False) -> dict:
     """One call of ``step_fn`` with K1's calls counted by (op, volume
-    shape, grids): {key: calls}."""
+    shape, grids[, the dtype of the volume (fwd) or the cotangent (bwd)]):
+    {key: calls}."""
     calls = {}
     wrapped = {"fwd": "grid_sample_3d_fused", "bwd_grid": "grid_sample_3d_bwd_grid",
                "bwd_vol": "grid_sample_3d_bwd_vol"}
@@ -1446,6 +1481,9 @@ def record_k1(fused_sample, step_fn) -> dict:
             vol_shape = tuple(args[0].shape) if op != "bwd_vol" else tuple(args[2])
             grid = args[1] if op != "bwd_vol" else args[0]
             key = (op, vol_shape, grid.shape[0])
+            if dtypes:
+                operand = {"fwd": args[0], "bwd_grid": args[2], "bwd_vol": args[1]}[op]
+                key += (str(operand.dtype)[6:],)
             calls[key] = calls.get(key, 0) + 1
             return fn(*args)
         return run
@@ -2167,7 +2205,7 @@ def phase_train(kernels, seed):
     step(adam, pool[0], generator=g)
     torch.cuda.synchronize()
     counts = read_counters(kernels)
-    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+    if not all(counts[k] > 0 for k in TRAIN_STEP_KERNELS):
         fail(f"training: a kernel was not launched on the step: {counts}")
     events = []
     t0 = time.perf_counter()
@@ -2428,7 +2466,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/12: the model options and the GAN training step: the training tool's "
+    say("== phase 11/13: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2444,7 +2482,6 @@ def phase_eleven(kernels, seed, held, smi) -> dict:
 # Phase 12: the data path. (a) tools/train_unseen_real.py's stream
 # conditions (:197-212) at phase 7's sizes; (b) its held-out evaluation.
 DATA_SHAPES, DATA_WORKERS_MAX = 32, 16
-DATA_STEPS = 3  # loader-fed steps timed, held-batch steps timed, loader-fed steps profiled
 # The JAX record that artifacts/unseen_real/unseen_real.npz reproduces (run
 # 3's held-out evaluation, run3/pose_eval.json; PERF.md §6), by object; run
 # 2's (the top-level pose_eval.json) beside it.
@@ -2612,13 +2649,14 @@ def transfer_checks(encoded) -> dict:
     return {"held": on_card, **out}
 
 
-def phase_data_training(kernels, seed, held, step_counts) -> dict:
+def phase_data_training(kernels, seed, held) -> dict:
     """Phase 12 (a): the synthetic stream of meshes through the loader (the
-    quantised transport, as the tool's) into phase 7's flagship step.
-    ``step_counts``: phase 7's launches on one step. Returns the launches
-    of the loader-fed steps and the measurements."""
+    quantised transport, as the tool's) into phase 7's flagship step (fp32,
+    2 microbatches): two steps on a loader batch, the same bits, their
+    launches counted and their K1 shapes ones phase 2 held (``held``). The
+    loader-fed steps of the training tool are phase 13's. Returns the
+    launches of the two steps and the measurements."""
     from latentfusion_tpu_torch import zoo
-    from latentfusion_tpu_torch.data import loader
     from latentfusion_tpu_torch.three import quaternion
     from latentfusion_tpu_torch.train import step as tstep
 
@@ -2644,67 +2682,30 @@ def phase_data_training(kernels, seed, held, step_counts) -> dict:
                                        num_microbatches=TRAIN_MICROBATCHES)
     g = torch.Generator(device=dev).manual_seed(seed + 12)
     rotations = [quaternion.random(1, g) for _ in range(TRAIN_MICROBATCHES)]
-    first, second = (train_grads(step, mods, held_batch, rotations) for _ in range(2))
+    grads = []
+    reset_counters(kernels)
+    calls = record_k1(kernels[0], lambda: grads.extend(
+        train_grads(step, mods, held_batch, rotations) for _ in range(2)))
+    counts = read_counters(kernels)
+    first, second = grads
     parted = [k for k in first[1] if not torch.equal(first[1][k], second[1][k])]
     same = bool(torch.equal(first[0], second[0])) and not parted
     say(f"  two steps from the same state and loader batch: the same loss and gradient bits "
-        f"{same} ({len(parted)} parameters parted); loss {float(first[0]):.4f}")
+        f"{same} ({len(parted)} parameters parted); loss {float(first[0]):.4f}; launches "
+        f"{json.dumps(counts)}; K1 calls (op, volume, grids: calls) "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}")
     if not same:
         fail("data: two training steps on a loader batch gave other bits")
-    del first, second
-
-    adam = tstep.init_train_state(mods, tstep.make_optimizer("adam", 1e-3))
-    feed = loader.IterableLoader(dataset, batch_size=TRAIN_BATCH, num_workers=workers,
-                                 prefetch_factor=2, device=dev, transport="quantized")
-    losses = []
-    try:
-        batches = iter(feed)
-
-        def fed_steps(n):
-            for _ in range(n):
-                _, scalars = step(adam, next(batches), generator=g)
-                losses.append({k.split("/")[-1]: float(v) for k, v in scalars.items()})
-
-        fed_steps(1)  # starts the workers and warms the step
-        torch.cuda.synchronize()
-        walls = {"loader-fed": [], "held batch": []}
-
-        def timed(label, run):
-            for _ in range(DATA_STEPS):
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                walls[label].append((time.perf_counter() - t0) * 1e3)
-
-        timed("loader-fed", lambda: fed_steps(1))
-        timed("held batch", lambda: step(adam, held_batch, generator=g))
-        reset_counters(kernels)
-        idle = {}
-        calls = record_k1(kernels[0], lambda: idle.update(idle_share(
-            lambda: fed_steps(DATA_STEPS))))
-        counts = read_counters(kernels)
-    finally:
-        feed.shutdown()
-    mean = {k: sum(v) / len(v) for k, v in walls.items()}
-    say(f"  ms per step (wall, synchronised): loader-fed {mean['loader-fed']:.1f} "
-        f"{json.dumps([round(x, 1) for x in walls['loader-fed']])}, held batch "
-        f"{mean['held batch']:.1f} {json.dumps([round(x, 1) for x in walls['held batch']])}")
-    say(f"  {DATA_STEPS} loader-fed steps profiled: device idle share {idle['idle_share']:.4f} "
-        f"(busy {idle['busy_ms']:.1f} of {idle['window_ms']:.1f} ms); launches "
-        f"{json.dumps(counts)} (phase 7's step: {json.dumps(step_counts)}); K1 calls (op, volume, "
-        f"grids: calls) {json.dumps({str(k): v for k, v in calls.items()})}")
-    say(f"  losses of the loader-fed steps: {json.dumps(losses)}")
-    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
-        fail(f"data: a kernel was not launched on the loader-fed steps: {counts}")
+    if not all(counts[k] > 0 for k in TRAIN_STEP_KERNELS):
+        fail(f"data: a kernel was not launched on the loader-batch steps: {counts}")
     missing = [k for k in calls if k not in held]
     if missing:
         fail(f"data: K1 ran at shapes phase 2 did not hold: {missing}")
-    if not all(np.isfinite(v) for row in losses for v in row.values()):
-        fail("data: a loss of a loader-fed step is not finite")
-    del mods, adam, held_batch, step
+    if not all(np.isfinite(float(g[0])) for g in grads):
+        fail("data: a loss of a loader-batch step is not finite")
+    del first, second, grads, mods, held_batch, step
     torch.cuda.empty_cache()
-    return {"counts": counts, "items_per_s": {"1": rate_1, str(workers): rate_n},
-            "ms_per_step": mean, **idle, **moved}
+    return {"counts": counts, "items_per_s": {"1": rate_1, str(workers): rate_n}, **moved}
 
 
 def phase_data_heldout(kernels, seed, held, checks=True) -> dict:
@@ -2783,16 +2784,16 @@ def phase_data_shapes(fused_sample, seed):
     return rows, {(r["op"], tuple(r["vol"]), r["grids"]) for r in rows}
 
 
-def phase_twelve(kernels, seed, held, smi, step_counts=None) -> dict:
+def phase_twelve(kernels, seed, held, smi) -> dict:
     """Phase 12 (a) and (b); returns the launch counts by path."""
-    say("== phase 12/12: the data path: meshes, the rasterizer, augmentation and the loader "
-        "feeding the flagship training step; held-out objects of unseen_real.npz on "
+    say("== phase 12/13: the data path: meshes, the rasterizer, augmentation and the loader "
+        "into the flagship training step; held-out objects of unseen_real.npz on "
         "rasterized views")
     t12 = time.perf_counter()
-    fed = phase_data_training(kernels, seed, held, step_counts)
+    fed = phase_data_training(kernels, seed, held)
     t_fed = time.perf_counter() - t12
     real = phase_data_heldout(kernels, seed, held)
-    say(f"   phase 12 launches: loader-fed steps {json.dumps(fed['counts'])}, held-out "
+    say(f"   phase 12 launches: two loader-batch steps {json.dumps(fed['counts'])}, held-out "
         f"batches {json.dumps(real['counts'])}; phase 12 took {time.perf_counter() - t12:.1f} s "
         f"((a) {t_fed:.1f} s) on {smi}")
     return {"data_fed_train_steps": fed["counts"], "unseen_real_batches": real["counts"]}
@@ -3158,7 +3159,7 @@ def phase_gan(kernels, seed, held):
     check_k1_shapes("one GAN step", calls, held)
     if parted_runs:
         fail("GAN step: two steps from the same state and batch gave other bits")
-    if not all(counts[k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+    if not all(counts[k] > 0 for k in TRAIN_STEP_KERNELS):
         fail(f"GAN step: a kernel was not launched on the step: {counts}")
     if not all(np.isfinite(v) for v in losses.values()):
         fail("GAN step: a loss is not finite")
@@ -3268,7 +3269,7 @@ def phase_options(kernels, seed, held):
         fail("Blend training step: remat gave other bits")
     if not all(np.isfinite(v) for v in losses.values()):
         fail("Blend training step: a loss is not finite")
-    if not all(plain["counts"][k] > 0 for k in ("K1", "K1bv", "K2", "K2b")):
+    if not all(plain["counts"][k] > 0 for k in TRAIN_STEP_KERNELS):
         fail(f"Blend training step: a kernel was not launched: {plain['counts']}")
     out["blend_train_step"] = plain["counts"]
     del results, plain, remat, mods, batch, start_state
@@ -3322,6 +3323,402 @@ def phase_options(kernels, seed, held):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+JPEG_BANK = ROOT / "tests" / "data" / "jpeg_bank"
+TRAINER_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "trainer"
+# tools/train.sh's flags, verbatim but for the dataset, the two banks, the
+# save directory and the epochs.
+RECIPE_FLAGS = [
+    "--histogram-interval", "-1", "--plot-interval", "500", "--show-interval", "1000",
+    "--color-noise-level", "0.05", "--depth-noise-level", "0.00", "--num-workers", "5",
+    "--base-name", "shapenet,256", "--input-size", "256", "--batch-size", "8",
+    "--batch-groups", "2", "--num-input-views", "8", "--num-output-views", "24",
+    "--optimizer", "adam", "--generator-lr", "0.00075", "--discriminator-lr", "0.00075",
+    "--sculptor-image-config", "64,D,128,D,196,D,256,D,512,D,512,D,512:512,U,512,U,256",
+    "--sculptor-camera-config", "64,128,256", "--sculptor-object-config", "256,256",
+    "--sculptor-projection-type", "factor", "--photographer-object-config", "none",
+    "--photographer-camera-config", "256,256",
+    "--photographer-image-config", "256,D,512,D,512:512,U,512,U,512,U,256,U,196,U,128,U,64",
+    "--photographer-projection-type", "factor", "--fuser-type", "gru",
+    "--g-depth-recon-loss-type", "hard_smooth_l1", "--g-depth-recon-loss-weight", "25.0",
+    "--g-depth-recon-loss-k", "16384", "--g-depth-recon-loss-k-milestones", "15,30,45,60",
+    "--g-mask-recon-loss-type", "binary_cross_entropy", "--g-mask-recon-loss-weight", "25.0",
+    "--g-mask-beta-loss-weight", "0.0", "--random-orientation", "--crop-predicted-mask",
+    "--generator-input-mask", "--no-discriminator", "--color-random-background",
+    "--crop-random-background", "--mask-noise-p", "0.25", "--predict-depth",
+    "--predict-mask", "--scale-mode", "nearest", "--use-amp", "--data-parallel"]
+RECIPE_EPOCHS, RECIPE_BATCHES = 2, 2
+# The recipe's loss in fp32 against bf16 on one batch, relative: the CPU
+# test's bound (tests/test_torch_dtypes.py, BF16_LOSS_TOL).
+RECIPE_BF16_LOSS_TOL = 1e-2
+IDLE_ITERATIONS = 3
+# The kernels train_ibr must launch: its reconstruction is frozen (no K1
+# backward), its generator and discriminator run K2 both ways.
+IBR_KERNELS = ("K1", "K2", "K2b")
+
+
+class StepSpy:
+    """Wraps the step a training tool makes: per call, device ms by CUDA
+    events, the launches of the call, and its scalars."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.rows = []
+
+    def wrap(self, make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(state, batch, *a, **kw):
+                before = read_counters(self.kernels)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = step(state, batch, *a, **kw)
+                end.record()
+                end.synchronize()
+                after = read_counters(self.kernels)
+                self.rows.append({"ms": start.elapsed_time(end),
+                                  "launches": {k: after[k] - before[k] for k in after},
+                                  "losses": {k: float(v) for k, v in out[1].items()}})
+                return out
+            return run
+        return made
+
+
+def trainer_k1_cases(seed):
+    """The (op, label, volume, grid, dtype) of every K1 call of phase 13's
+    training paths: the recipe's step on a batch of 8 objects in one pass
+    (8 + 24 views, latent 256 x 16^3) in bf16, and in fp32 for the loss
+    comparison; train_ibr's reconstruction forward (fp32) at its 16 input
+    views and 16 + 8 decoded ones."""
+    from latentfusion_tpu_torch import testing, transforms, zoo
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.recon.utils import process_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 15)
+    proc = process_batch(train_batch(g, TRAIN_BATCH), 1.0, train_config()["camera_dist"],
+                         zoo.FLAGSHIP_INPUT_SIZE, generator=g)
+    ibr = process_batch(testing.render_training_batch(g, TRAIN_BATCH, 16, 8, device="cuda"),
+                        1.0, train_config()["camera_dist"], zoo.FLAGSHIP_INPUT_SIZE,
+                        random_orientation=False)
+    grids = {"decode": transforms.object_to_camera_grid(proc["out_gt"]["camera"], 16),
+             "encode": transforms.camera_to_object_grid(proc["in"]["camera"], 16),
+             "ibr encode": transforms.camera_to_object_grid(ibr["in"]["camera"], 16),
+             "ibr decode": transforms.object_to_camera_grid(Camera.vcat(
+                 (ibr["in_gt"]["camera"], ibr["out_gt"]["camera"]), TRAIN_BATCH), 16)}
+    del proc, ibr
+    nv = {"decode": TRAIN_BATCH, "encode": TRAIN_BATCH * TRAIN_IN,
+          "ibr encode": TRAIN_BATCH * 16, "ibr decode": TRAIN_BATCH}
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for op in ("fwd", "bwd_vol"):
+            for key in ("decode", "encode"):
+                cases.append((op, f"trainer recipe {key}", nv[key], grids[key], dtype))
+    for key in ("ibr encode", "ibr decode"):
+        cases.append(("fwd", f"train_ibr {key}", nv[key], grids[key], torch.float32))
+    return cases
+
+
+def phase_trainer_shapes(fused_sample, seed):
+    """K1-fwd and K1-bwd-vol at phase 13's shapes (trainer_k1_cases), in
+    their dtypes, against their plain versions. Returns the rows and the
+    (op, volume, grids, dtype) held."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    rows = []
+    for op, label, nv, grid, dtype in trainer_k1_cases(seed):
+        c, size = 256, grid.shape[1]
+        vol = torch.randn(nv, c, size, size, size, generator=g, device=dev)
+        gout = (None if op == "fwd" else
+                torch.randn(grid.shape[0], c, *grid.shape[1:4], generator=g, device=dev))
+        rows.append(k1_at(fused_sample, op, label, vol, grid, gout, dtype=dtype))
+        del vol, gout
+    torch.cuda.empty_cache()
+    return rows, {(r["op"], tuple(r["vol"]), r["grids"], r["dtype"]) for r in rows}
+
+
+def recipe_argv(meshes_dir, save_dir, epochs, extra=()):
+    return ["--dataset-type", "paths", "--dataset-path", str(meshes_dir),
+            "--textures-path", str(JPEG_BANK / "textures"),
+            "--color-background-path", str(JPEG_BANK / "backgrounds"),
+            "--save-dir", str(save_dir), "--batches-per-epoch", str(RECIPE_BATCHES),
+            "--num-epochs", str(epochs), *RECIPE_FLAGS, *extra]
+
+
+def run_tool(kernels, module, maker, argv):
+    """``module.main(argv)`` with the step it makes spied on and the
+    counters set to 0 just before: (trainer, the path's launches, its K1
+    calls by (op, volume, grids, dtype), the spy's rows, peak GB, seconds)."""
+    spy = StepSpy(kernels)
+    mod, name = maker
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernels)
+    out = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(mod, name, spy.wrap(getattr(mod, name))):
+        calls = record_k1(kernels[0], lambda: out.update(trainer=module.main(argv)),
+                          dtypes=True)
+    seconds = time.perf_counter() - t0
+    counts = read_counters(kernels)
+    return (out["trainer"], counts, calls, spy.rows,
+            torch.cuda.max_memory_allocated() / 2 ** 30, seconds)
+
+
+def iteration_summary(label, trainer, rows, counts, calls, held, peak_gb, seconds, smi,
+                      required, amp):
+    """Print a tool run's numbers; fail on a kernel of ``required`` not
+    launched, a K1 shape phase 2 did not hold in its dtype, a K1 call not in
+    bf16 under ``amp`` (the tool's --use-amp), or a loss that is not
+    finite."""
+    loads = list(trainer.plotter.moving_meters["time/data_load"].values)
+    per_iter = {k: sum(r["launches"][k] for r in rows) / len(rows) for k in counts}
+    say(f"  {label}: {len(rows)} iterations in {seconds:.1f} s, on {smi}")
+    say(f"    step ms (CUDA events) {json.dumps([round(r['ms'], 1) for r in rows])}; "
+        f"time/data_load s {json.dumps([round(x, 3) for x in loads])}; peak memory "
+        f"{peak_gb:.2f} GB")
+    say(f"    launches on the path {json.dumps(counts)}, per iteration {json.dumps(per_iter)}; "
+        f"K1 calls (op, volume, grids, dtype: calls) "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}")
+    say(f"    losses {json.dumps([r['losses'] for r in rows])}")
+    if not all(counts[k] > 0 for k in required):
+        fail(f"{label}: a kernel of {required} was not launched: {counts}")
+    missing = [k for k in calls if k not in held]
+    if missing:
+        fail(f"{label}: K1 ran at shapes phase 2 did not hold in that dtype: {missing}")
+    not_bf16 = [k for k in calls if amp and k[-1] != "bfloat16"]
+    if not_bf16:
+        fail(f"{label}: under --use-amp K1 ran outside bf16: {not_bf16}")
+    if not all(np.isfinite(v) for r in rows for v in r["losses"].values()):
+        fail(f"{label}: a loss is not finite")
+    return {"ms": [r["ms"] for r in rows], "data_load_s": loads, "peak_gb": peak_gb,
+            "per_iteration": per_iter, "seconds": seconds}
+
+
+def recipe_loss(step, mods, batch, rotations, dtype) -> float:
+    """The recipe step's generator loss on ``batch`` in ``dtype``, the
+    weights unchanged (SGD at learning rate 0)."""
+    from latentfusion_tpu_torch import dtypes
+    from latentfusion_tpu_torch.train import step as tstep
+
+    try:
+        with dtypes.compute_dtype(dtype):
+            state = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
+            _, scalars = step(state, batch, None, rotations)
+        loss = float(scalars["loss/generator/total"])
+    finally:
+        for m in mods.values():
+            m.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_recipe(kernels, seed, held, smi, meshes_dir) -> dict:
+    """Phase 13 (a): train_reconstruct.main on tools/train.sh's flags (bf16),
+    2 epochs of 2 batches, then --resume --branch for one more; idle share
+    over 3 loader-fed iterations; the loss in fp32 against bf16; the .pth
+    exported, loaded, built and rendered against the plain versions."""
+    from latentfusion_tpu_torch import dtypes, train_reconstruct
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+    from latentfusion_tpu_torch.three import quaternion
+    from latentfusion_tpu_torch.train import step as tstep
+
+    save_dir = TRAINER_DIR / "runs"
+    maker = (tstep, "make_recon_train_step")
+    trainer, counts, calls, rows, peak, secs = run_tool(
+        kernels, train_reconstruct, maker, recipe_argv(meshes_dir, save_dir, RECIPE_EPOCHS))
+    first = iteration_summary("train_reconstruct, train.sh's flags, bf16", trainer, rows,
+                              counts, calls, held, peak, secs, smi, TRAIN_STEP_KERNELS, amp=True)
+    latest = trainer.save_dir / "ckpt-epoch-latest.npz.pkl"
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, counts2, calls2, rows2, peak2, secs2 = run_tool(
+        kernels, train_reconstruct, maker,
+        recipe_argv(meshes_dir, save_dir, 1, ("--resume", str(latest), "--branch")))
+    resumed = iteration_summary("train_reconstruct --resume --branch, one epoch", trainer,
+                                rows2, counts2, calls2, held, peak2, secs2, smi,
+                                TRAIN_STEP_KERNELS, amp=True)
+    if not trainer.save_dir.name.startswith("shapenet,256-branch"):
+        fail(f"recipe: the resumed run is not a branch: {trainer.save_dir.name}")
+
+    # Idle share of 3 loader-fed iterations (the recipe's step, in bf16 as
+    # the tool ran it).
+    batches = iter(trainer.loader)
+    try:
+        with dtypes.compute_dtype(torch.bfloat16):
+            held_batch = next(batches)
+            trainer.run_iteration(held_batch)
+            torch.cuda.synchronize()
+            idle = idle_share(lambda: [trainer.run_iteration(next(batches))
+                                       for _ in range(IDLE_ITERATIONS)])
+    finally:
+        trainer.loader.shutdown()
+    say(f"  {IDLE_ITERATIONS} loader-fed iterations profiled: device idle share "
+        f"{idle['idle_share']:.4f} (busy {idle['busy_ms']:.1f} of {idle['window_ms']:.1f} ms)"
+        f" on {smi}")
+
+    # The loss in fp32 against bf16, one batch, the same weights and draws.
+    mods = {"sculptor": trainer.sculptor, "fuser": trainer.fuser,
+            "photographer": trainer.photographer}
+    config = dict(trainer.kwargs, camera_dist=trainer.camera_dist)
+    step = tstep.make_recon_train_step(trainer.sculptor, trainer.fuser, trainer.photographer,
+                                       config=config)
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rotations = [quaternion.random(1, g)]
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    objects = TRAIN_BATCH if 2 * max(peak, peak2) < 0.9 * total else 1
+    batch = {k: {kk: v[:objects] for kk, v in grp.items()} for k, grp in held_batch.items()}
+    losses = {str(d)[6:]: recipe_loss(step, mods, batch, rotations, d)
+              for d in (torch.bfloat16, torch.float32)}
+    rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
+    say(f"  the recipe's loss on {objects} of {TRAIN_BATCH} objects of a loader batch "
+        f"(bf16 peak {max(peak, peak2):.1f} GB of {total:.1f}): {json.dumps(losses)}, "
+        f"relative difference {rel:.3g} (tol {RECIPE_BF16_LOSS_TOL})")
+    if not rel <= RECIPE_BF16_LOSS_TOL:
+        fail("recipe: the bf16 loss is not within tolerance of the fp32 loss")
+    if losses["bfloat16"] == losses["float32"]:
+        fail("recipe: the bf16 and fp32 losses are the same bits: the policy did nothing")
+    del step, batch, held_batch, mods
+    torch.cuda.empty_cache()
+
+    pth = TRAINER_DIR / "recipe.pth"
+    trainer.export_torch_checkpoint(pth)
+    model = LatentFusionModel.from_checkpoint(pth)
+    render = drive_slice("recipe .pth", model, [("o0", 0)], kernels, seed, profile=False)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return {"counts": counts, "resumed_counts": counts2, "render": render["o0"],
+            "first": first, "resumed": resumed, "idle": idle, "losses": losses,
+            "pth": pth}
+
+
+def phase_ibr_train(kernels, held, smi, meshes_dir, pth) -> dict:
+    """Phase 13 (b): train_ibr.main on (a)'s .pth with the tool's defaults
+    (blend_flow, the published generator config, the discriminator; batch
+    8 of 16 + 8 views), 2 iterations."""
+    from latentfusion_tpu_torch import train_ibr
+    from latentfusion_tpu_torch.train import ibr_step
+
+    argv = ["--recon-checkpoint", str(pth), "--dataset-type", "paths",
+            "--dataset-path", str(meshes_dir), "--save-dir", str(TRAINER_DIR / "ibr"),
+            "--base-name", "recipe", "--batches-per-epoch", "2", "--num-epochs", "1"]
+    trainer, counts, calls, rows, peak, secs = run_tool(
+        kernels, train_ibr, (ibr_step, "make_ibr_train_step"), argv)
+    out = iteration_summary("train_ibr on the recipe's .pth, the tool's defaults", trainer,
+                            rows, counts, calls, held, peak, secs, smi, IBR_KERNELS,
+                            amp=False)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"counts": counts, **out}
+
+
+RIG_CHUNK_STEPS, RIG_WORKERS, RIG_OBJECTS = 20, 8, 32
+DISTILL_RIG_STEPS = 6
+
+
+def timed_calls(module, name, times):
+    """``module.name`` wrapped to append each call's synchronised seconds
+    to ``times``."""
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return mock.patch.object(module, name, run)
+
+
+def rig_readback(label, npz, keys) -> None:
+    """The rig's npz through the evaluation half's loader (demo family)."""
+    from latentfusion_tpu_torch import unseen_eval
+
+    model = unseen_eval.build_model("demo", npz, torch.device("cuda"), keys=keys)
+    n = sum(p.numel() for m in (model.sculptor, model.fuser, model.photographer)
+            for p in m.parameters())
+    say(f"    {label}: {npz.name} read back by unseen_eval.build_model ({n} parameters)")
+    del model
+
+
+def phase_train_rigs(kernels, smi) -> dict:
+    """Phase 13 (c): train_unseen_real with RIG_WORKERS workers and two
+    chunks at its sizes (demo family, 6 + 8 views of 256x192, bf16; the
+    pool cut to RIG_OBJECTS meshes); then the encoder-distill and
+    unseen-objects rigs for DISTILL_RIG_STEPS steps each and one evaluation
+    target. Each rig's npz is read back by the evaluation half's loader."""
+    from latentfusion_tpu_torch import (train_encoder_distill, train_unseen_objects,
+                                        train_unseen_real, unseen_real)
+
+    counts = {}
+    out = TRAINER_DIR / "unseen_real"
+    chunks = []
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    with timed_calls(train_unseen_real, "run_chunk", chunks):
+        history = train_unseen_real.main([
+            "--steps", str(2 * RIG_CHUNK_STEPS), "--chunk-steps", str(RIG_CHUNK_STEPS),
+            "--workers", str(RIG_WORKERS), "--train-objects", str(RIG_OBJECTS),
+            "--out", str(out), "--assets-dir", str(DATA_DIR)])
+    counts["train_unseen_real"] = read_counters(kernels)
+    per_step = [c / RIG_CHUNK_STEPS for c in chunks]
+    say(f"  train_unseen_real: {len(chunks)} chunks of {RIG_CHUNK_STEPS} steps, "
+        f"{RIG_WORKERS} workers, {time.perf_counter() - t0:.1f} s in all; s per step by chunk "
+        f"{json.dumps([round(x, 4) for x in per_step])}; history {json.dumps(history)}; "
+        f"launches {json.dumps(counts['train_unseen_real'])} on {smi}")
+    if not all(np.isfinite(row["loss"]) for row in history):
+        fail("train_unseen_real: a loss is not finite")
+    if not all(counts["train_unseen_real"][k] > 0 for k in TRAIN_STEP_KERNELS):
+        fail(f"train_unseen_real: a kernel was not launched: {counts['train_unseen_real']}")
+    rig_readback("train_unseen_real", out / "unseen_real.npz", unseen_real.KEYS)
+    for label, module, argv, stem in (
+            ("train_encoder_distill", train_encoder_distill,
+             ["--eval-targets", "1", "--eval-views", "16"], "encoder_distill"),
+            ("train_unseen_objects", train_unseen_objects, [], "unseen_objects")):
+        steps = []
+        rig_out = TRAINER_DIR / stem
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        with timed_calls(train_encoder_distill, "train_step", steps):
+            result = module.main(["--steps", str(DISTILL_RIG_STEPS), "--out", str(rig_out),
+                                  *argv])
+        counts[label] = read_counters(kernels)
+        history = json.loads((rig_out / "history.json").read_text())
+        say(f"  {label}: {DISTILL_RIG_STEPS} steps, s per step "
+            f"{json.dumps([round(x, 4) for x in steps])}, {time.perf_counter() - t0:.1f} s "
+            f"in all; history {json.dumps(history)}; launches "
+            f"{json.dumps(counts[label])} on {smi}")
+        if isinstance(result, dict):
+            say(f"    evaluation: ADD-S 0.1d {result['add_s_0.1d']} on "
+                f"{len(result['targets'])} target(s)")
+        if not all(np.isfinite(v) for row in history for v in row.values()):
+            fail(f"{label}: a loss is not finite")
+        if not all(counts[label][k] > 0 for k in TRAIN_STEP_KERNELS):
+            fail(f"{label}: a kernel was not launched: {counts[label]}")
+        rig_readback(label, rig_out / f"{stem}.npz", rig_out / f"{stem}_keys.json")
+    return counts
+
+
+def phase_thirteen(kernels, seed, held, smi) -> dict:
+    """Phase 13 (a), (b) and (c); returns the launch counts by path."""
+    say("== phase 13/13: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
+        "JPEG banks), --resume --branch, the .pth rendered; train_ibr on it; the rigs' "
+        "training halves")
+    t13 = time.perf_counter()
+    meshes_dir = DATA_DIR / "meshes"
+    recipe = phase_recipe(kernels, seed, held, smi, meshes_dir)
+    t_a = time.perf_counter() - t13
+    ibr = phase_ibr_train(kernels, held, smi, meshes_dir, recipe["pth"])
+    t_b = time.perf_counter() - t13 - t_a
+    rigs = phase_train_rigs(kernels, smi)
+    say(f"   phase 13 launches: recipe {json.dumps(recipe['counts'])}, resumed "
+        f"{json.dumps(recipe['resumed_counts'])}, train_ibr {json.dumps(ibr['counts'])}, "
+        f"rigs {json.dumps(rigs)}; phase 13 took {time.perf_counter() - t13:.1f} s ((a) "
+        f"{t_a:.1f} s, (b) {t_b:.1f} s) on {smi}")
+    return {"trainer_recipe": recipe["counts"], "trainer_resumed": recipe["resumed_counts"],
+            "trainer_pth_render": recipe["render"], "train_ibr": ibr["counts"], **rigs}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3355,7 +3752,7 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/12: device, kernel build, reference views")
+    say("== phase 1/13: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
@@ -3387,7 +3784,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/12: kernels against their plain versions")
+    say("== phase 2/13: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -3397,6 +3794,7 @@ def main() -> None:
     new_rows, held = phase_new_shapes(fused_sample, args.seed)
     option_rows, option_held = phase_option_shapes(fused_sample, args.seed)
     data_rows, data_held = phase_data_shapes(fused_sample, args.seed)
+    trainer_rows, trainer_held = phase_trainer_shapes(fused_sample, args.seed)
     data_held |= held | option_held | {row["held"] for row in bwd_vol_rows.values()}
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
@@ -3406,8 +3804,9 @@ def main() -> None:
     say(f"   K1 at the multi-object and latent shapes: {json.dumps(new_rows)}")
     say(f"   K1 at phase 11's shapes: {json.dumps(option_rows)}")
     say(f"   K1 at phase 12's shapes: {json.dumps(data_rows)}")
+    say(f"   K1 at phase 13's shapes: {json.dumps(trainer_rows)}")
 
-    say(f"== phase 3/12: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/13: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -3418,12 +3817,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/12: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/13: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/12: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/13: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -3434,24 +3833,24 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/12: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/13: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "CEM, Metropolis, estimate_batch")
     accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
     del demo
     torch.cuda.empty_cache()
 
-    say(f"== phase 7/12: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/13: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/12: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/13: the pose service at flagship width, two rounds of requests")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round: {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/12: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/13: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -3459,7 +3858,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/12: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/13: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -3467,7 +3866,8 @@ def main() -> None:
         f"{time.perf_counter() - t10:.1f} s on {smi}")
 
     options = phase_eleven(kernels, args.seed, option_held, smi)
-    data = phase_twelve(kernels, args.seed, data_held, smi, train_counts)
+    data = phase_twelve(kernels, args.seed, data_held, smi)
+    trainer = phase_thirteen(kernels, args.seed, trainer_held, smi)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -3478,7 +3878,7 @@ def main() -> None:
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
-             "reconstruction": recon_counts, **options, **data}
+             "reconstruction": recon_counts, **options, **data, **trainer}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

@@ -13,5 +13,8 @@ first use and bound with ctypes:
   d/dvolume);
 - ``ops.lrelu_pnorm``: fused leaky-ReLU + PixelNorm (K2 forward and
   backward).
+
+The host data path's C++ (the rasterizer, ``csrc/jpeg.cpp``) is built with
+g++ at first use.
 """
 from .device import resolve_device  # noqa: F401

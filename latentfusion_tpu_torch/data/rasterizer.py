@@ -55,34 +55,36 @@ _ARGTYPES = [
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _compiler() -> str:
+def _compiler(source: Path) -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if not cxx:
         raise RuntimeError("no C++ compiler found (set CXX or put g++ on PATH) to build "
-                           f"{SOURCE}")
+                           f"{source}")
     return cxx
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"librasterizer-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the rasterizer if its library is missing; raises on failure.
-    Concurrent builds each write a temporary file and move it in place."""
-    out = library_path()
+def build_host_library(source: Path, stem: str, flags, build_dir: Path) -> Path:
+    """Compile ``source`` into ``build_dir/<stem>-<hash>.so`` if it is missing,
+    the hash covering the source and ``flags``; raises on failure. Concurrent
+    builds each write a temporary file and move it in place."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    out = build_dir / f"{stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_compiler(source), *flags, "-o", str(tmp), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stdout}")
+        raise RuntimeError(f"building {source.name} failed:\n{proc.stdout}")
     os.replace(tmp, out)
     return out
+
+
+def build() -> Path:
+    """Compile the rasterizer if its library is missing; raises on failure."""
+    return build_host_library(SOURCE, "librasterizer", CXX_FLAGS, BUILD_DIR)
 
 
 def load_library() -> ctypes.CDLL:

@@ -13,9 +13,9 @@ and intrinsic stacks.
 Poses come from a ``torch.Generator`` seeded from ``seed`` and the worker
 id (the JAX package draws them from ``jax.random``); ``random`` and
 ``np.random`` are drawn exactly as the JAX package draws them. Images are
-PNG (``png.py``): the procedural textures and backgrounds are written as
-8-bit RGB PNG and the depth backgrounds as 16-bit grey PNG, and a ``.jpg``
-asset raises, for there is no JPEG decoder here.
+PNG (``png.py``) or JPEG (``jpeg.py``): the procedural textures and
+backgrounds are written as 8-bit RGB PNG and the depth backgrounds as 16-bit
+grey PNG; the JPEG banks of the training recipe read as imageio reads them.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import augment, png, three
+from .. import augment, jpeg, png, three
+from ..jpeg import NoDecoderError  # noqa: F401  (raised by read_image)
 from ..three import host
 from ..three import quaternion as quat
 from . import rendering
@@ -48,17 +49,12 @@ OBJ_DEFAULT_POSE = np.asarray(
 IMAGE_EXT = ".png"
 
 
-class NoDecoderError(ValueError):
-    """An image in a format this package cannot decode (JPEG)."""
-
-
 def read_image(path) -> np.ndarray:
-    """An image file as a numpy array. Only PNG can be read: a JPEG raises
-    ``NoDecoderError``."""
+    """An image file as a numpy array: JPEG through ``jpeg.py`` (a JPEG it
+    cannot decode raises ``NoDecoderError``), anything else as PNG."""
     path = Path(path)
     if path.suffix.lower() in (".jpg", ".jpeg"):
-        raise NoDecoderError(f"{path}: no JPEG decoder in this package (it reads PNG "
-                             "through png.py); convert the asset to PNG")
+        return jpeg.read_jpeg(path)
     return png.read_png(path)
 
 
@@ -190,6 +186,15 @@ def make_procedural_backgrounds(out_dir, n_color: int = 24, n_depth: int = 12,
     return out_dir
 
 
+def index_images(image_dir: Path, index_name: str = "paths.txt"):
+    """A color bank's images: the paths listed in ``index_name`` if present,
+    else every JPEG (the JAX package's banks) and PNG file, sorted."""
+    image_dir = Path(image_dir)
+    if (image_dir / index_name).exists():
+        return index_paths(image_dir, IMAGE_EXT, index_name)
+    return sorted(p for ext in (".jpg", ".jpeg", IMAGE_EXT) for p in image_dir.glob(f"**/*{ext}"))
+
+
 def index_paths(dataset_dir: Path, ext: str, index_name: str = "paths.txt"):
     """The paths listed in ``index_name`` if present, else every ``*ext``
     file under ``dataset_dir``, sorted."""
@@ -256,10 +261,10 @@ class SyntheticDataset(torch.utils.data.IterableDataset):
         self.obj_default_pose = obj_default_pose
         self.shape_paths = list(shape_paths)
 
-        self.texture_paths = (index_paths(textures_dir, IMAGE_EXT)
+        self.texture_paths = (index_images(textures_dir)
                               if use_textures and textures_dir else [])
         self.color_background_paths = (
-            index_paths(color_background_dir, IMAGE_EXT)
+            index_images(color_background_dir)
             if color_random_background and color_background_dir else [])
         self.depth_background_paths = (
             index_paths(depth_background_dir, IMAGE_EXT, "depth_paths.txt")
@@ -333,8 +338,6 @@ class SyntheticDataset(torch.utils.data.IterableDataset):
                 if image.ndim != 3 or image.shape[2] < 3:
                     continue
                 return image[:, :, :3]
-            except NoDecoderError:
-                raise
             except Exception:
                 logger.warning("failed to read image %s", path)
         raise RuntimeError("could not load a background image")
@@ -354,8 +357,6 @@ class SyntheticDataset(torch.utils.data.IterableDataset):
                 if rng <= 0:
                     continue
                 return (depth - depth.min()) / rng * far
-            except NoDecoderError:
-                raise
             except Exception:
                 logger.warning("failed to read depth image %s", path)
         raise RuntimeError("could not load a background depth")

@@ -2,7 +2,9 @@
 ``latentfusion_tpu/modules/equalized.py``).
 
 A bias-free conv (``module``) whose output is scaled at run time by the He
-constant sqrt(2 / fan_in), then a separate ``bias``. The parameter names are
+constant sqrt(2 / fan_in), then a separate ``bias``. It computes in the
+compute dtype (``dtypes.py``) with fp32 parameters, and its output, bias
+included, stays in it. The parameter names are
 the reference checkpoint's: ``<name>.module.weight`` and ``<name>.bias``.
 """
 from __future__ import annotations
@@ -11,6 +13,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..dtypes import get_compute_dtype
 
 _CONVS = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 
@@ -33,5 +37,12 @@ class EqualizedConv(nn.Module):
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.module(x) * self.scale
-        return y + self.bias.reshape(1, -1, *([1] * (y.dim() - 2)))
+        dtype = get_compute_dtype()
+        if dtype == torch.float32 and x.dtype == torch.float32:
+            y = self.module(x) * self.scale
+        else:
+            # The He constant rounds to the compute dtype first, as in JAX.
+            conv = self.module
+            y = conv._conv_forward(x.to(dtype), conv.weight.to(dtype), None)
+            y = y * torch.tensor(self.scale, dtype=dtype)
+        return y + self.bias.to(y.dtype).reshape(1, -1, *([1] * (y.dim() - 2)))

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ..dtypes import get_compute_dtype
 from .grid_sample import _unnormalize
 
 LAUNCHES = 0
@@ -511,9 +512,11 @@ class FusedSample3d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, volume, grid, padding_mode):
+        ctx.volume_dtype = volume.dtype
+        volume = volume.to(get_compute_dtype())
         ctx.save_for_backward(volume, grid)
         ctx.padding_mode = padding_mode
-        return grid_sample_3d_fused(volume, grid, padding_mode)
+        return grid_sample_3d_fused(volume, grid, padding_mode, volume.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -522,7 +525,7 @@ class FusedSample3d(torch.autograd.Function):
         dvol = dgrid = None
         if ctx.needs_input_grad[0]:
             dvol = grid_sample_3d_bwd_vol(grid, g, volume.shape,
-                                          ctx.padding_mode).to(volume.dtype)
+                                          ctx.padding_mode).to(ctx.volume_dtype)
         if ctx.needs_input_grad[1]:
             dgrid = grid_sample_3d_bwd_grid(volume, grid, g, ctx.padding_mode)
         return dvol, dgrid, None
@@ -531,6 +534,7 @@ class FusedSample3d(torch.autograd.Function):
 def grid_sample_3d(volume: torch.Tensor, grid: torch.Tensor,
                    padding_mode: str = "zeros") -> torch.Tensor:
     """Differentiable (in ``volume`` and ``grid``) ``grid_sample_3d_fused``
-    with fp32 output; see the module docstring."""
+    on the volume in the compute dtype (``dtypes.py``; fp32 unless bf16 is
+    asked for), with its output in that dtype; see the module docstring."""
     return FusedSample3d.apply(volume.contiguous(), grid.contiguous(),
                                padding_mode)

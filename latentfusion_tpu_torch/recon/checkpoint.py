@@ -8,9 +8,13 @@ what ``latentfusion_tpu.recon.checkpoint.export_torch_state_dict`` emits:
     torch image_encoder.down_blocks.0.conv1.module.weight
 
 ``from_jax_params`` applies that renaming to JAX parameters given as numpy
-arrays keyed by their pytree paths; ``load_params_npz`` reads the distill
-rigs' enumerated-leaf npz files with numpy alone, naming each leaf by its
-pytree path from the companion ``*_keys.json``.
+arrays keyed by their pytree paths, and ``to_jax_params`` undoes it (the
+layouts are the same in both packages); ``load_params_npz`` reads the
+distill rigs' enumerated-leaf npz files with numpy alone, naming each leaf
+by its pytree path from the companion ``*_keys.json``, and
+``save_params_npz`` writes them in JAX's leaf order. ``nest_params`` and
+``flatten_params`` move between path keys and the nested dicts of the JAX
+trainer's pickled checkpoints.
 """
 from __future__ import annotations
 
@@ -60,6 +64,65 @@ def from_jax_params(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
             parts = parts[:-1] + ["module", "weight"]
         state[".".join(parts)] = torch.from_numpy(value.copy())
     return state
+
+
+def to_jax_params(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` (keys led by a module name, ``sculptor.``,
+    ``fuser.``, ...) -> JAX parameters keyed by pytree path in the keys json
+    files' form (``"['sculptor']/['params']/['down_blocks_0']/..."``, flax's
+    ``params`` level under each module name), in JAX's leaf order (each
+    level's keys sorted). ``to_jax_params(from_jax_params(p)) == p`` for
+    every tree of the zoo."""
+    out = {}
+    for key, value in state.items():
+        parts = []
+        for p in key.split("."):
+            if p.isdigit():
+                parts[-1] = f"{parts[-1]}_{p}"
+            else:
+                parts.append(p)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        value = np.asarray(value)
+        if len(parts) > 2 and parts[-2:] == ["module", "weight"] and value.ndim >= 2:
+            parts = parts[:-2] + ["weight"]
+        parts.insert(1, "params")
+        out[tuple(parts)] = value
+    return {"/".join(f"['{p}']" for p in path): out[path] for path in sorted(out)}
+
+
+def nest_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Pytree-path keys -> nested dicts."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        *heads, last = _path_parts(key)
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = value
+    return tree
+
+
+def flatten_params(tree: Mapping[str, Any], prefix=()) -> Dict[str, Any]:
+    """Nested dicts -> pytree-path keys (the inverse of ``nest_params``)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out.update(flatten_params(v, prefix + (k,)))
+        else:
+            out["/".join(f"['{p}']" for p in prefix + (k,))] = v
+    return out
+
+
+def save_params_npz(path, state: Mapping[str, Any], keys_json=None) -> None:
+    """Write ``state`` as the JAX rigs' enumerated-leaf npz (leaf ``i`` as
+    ``"i"``, in JAX's leaf order) and, with ``keys_json``, its pytree paths."""
+    params = to_jax_params(state)
+    np.savez(path, **{str(i): v for i, v in enumerate(params.values())})
+    if keys_json is not None:
+        with open(keys_json, "w") as f:
+            json.dump(list(params), f)
 
 
 def load_params_npz(path, keys_json) -> Dict[str, np.ndarray]:

@@ -82,6 +82,7 @@ class BlendFuser(nn.Module):
 
     def __init__(self, block_config: Any, in_channels: int, cube_size: float = 1.0):
         super().__init__()
+        self.in_channels = in_channels
         self.cube_size = cube_size
         self.unet = UNet3d(in_channels + 1, 1, block_config)
 
@@ -101,11 +102,11 @@ class BlendFuser(nn.Module):
 class GRUFuser(nn.Module):
     """Recurrent fold over views: the hidden state starts as view 0; each
     later view, with the normalized voxel coordinates appended, updates it.
-    ``cube_size`` is accepted for checkpoint args; the fold does not read
-    it."""
+    ``cube_size`` is kept for checkpoint args; the fold does not read it."""
 
     def __init__(self, in_channels: int, cube_size: float = 1.0):
         super().__init__()
+        self.in_channels, self.cube_size = in_channels, cube_size
         self.gru = ConvGRUCell(in_channels + 3, in_channels, kernel_size=3, ndim=3)
 
     def forward(self, z_obj, z_cam_mid=None, z_obj_mid=None, camera=None):
@@ -122,6 +123,7 @@ class LSTMFuser(nn.Module):
 
     def __init__(self, in_channels: int, cube_size: float = 1.0):
         super().__init__()
+        self.in_channels, self.cube_size = in_channels, cube_size
         self.lstm = ConvLSTMCell(in_channels + 3, in_channels, kernel_size=3, ndim=3)
 
     def forward(self, z_obj, z_cam_mid=None, z_obj_mid=None, camera=None):

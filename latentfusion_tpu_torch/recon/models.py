@@ -62,6 +62,11 @@ class Sculptor(nn.Module):
         out_channels = (object_config or camera_config)[-1]
         self.output_block = OutputBlock(out_channels, out_channels, ndim=3,
                                         activation=cube_activation_type)
+        # The latent's channels and size (the camera blocks halve the
+        # volume at each "D", the object blocks likewise).
+        self.out_channels = out_channels
+        self.out_size = image_out_size // 2 ** (tuple(camera_config).count("D")
+                                                + tuple(object_config or ()).count("D"))
 
     def forward(self, x: torch.Tensor, camera: Camera,
                 camera_intermediates: bool = False):

@@ -1,1 +1,4 @@
-"""Training (counterpart of ``latentfusion_tpu/train``): the reconstruction step."""
+"""Training (counterpart of ``latentfusion_tpu/train``): the reconstruction
+step (``step.py``), the IBR generator's step (``ibr_step.py``), the epoch
+loop and checkpoints (``trainer.py``), the tools' flags (``args.py``) and
+the meters (``logging.py``)."""

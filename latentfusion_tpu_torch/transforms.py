@@ -22,6 +22,7 @@ import contextlib
 import torch
 
 from .camera import Camera
+from .dtypes import get_compute_dtype
 from .ops.fused_sample import grid_sample_3d, grid_sample_3d_plain
 
 _BACKENDS = ("hopper", "torch")
@@ -50,7 +51,8 @@ def _volume_sample(volume: torch.Tensor, grid: torch.Tensor,
                    padding_mode: str) -> torch.Tensor:
     """volume (NV, C, D, H, W) with NV | len(grid); grid (N, D, H, W, 3)."""
     if _VOLUME_SAMPLE_BACKEND == "torch":
-        return grid_sample_3d_plain(volume, grid, padding_mode)
+        dtype = get_compute_dtype()
+        return grid_sample_3d_plain(volume.to(dtype), grid, padding_mode, dtype)
     return grid_sample_3d(volume, grid, padding_mode)
 
 

@@ -1,9 +1,54 @@
-"""Block-config strings and scalar schedules (counterpart of
-``latentfusion_tpu/utils``)."""
+"""Block-config strings, argument parsers, seeding, JSON and scalar
+schedules (counterpart of ``latentfusion_tpu/utils``)."""
 from __future__ import annotations
 
+import json
 import math
+import pathlib
+import random
 from bisect import bisect_right
+from functools import partial
+
+import numpy as np
+import torch
+
+
+def seed_all(seed: int) -> None:
+    """Seed ``random`` and ``np.random`` (the host streams the data path
+    draws from, as in the JAX package) and torch's default generator."""
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def list_arg(cast_type=str, delimiter=","):
+    """An argparse ``type``: ``'a,b'`` -> ``[cast(a), cast(b)]``, ``''`` -> []."""
+
+    def f(s):
+        if len(s) > 0:
+            return [cast_type(item) for item in s.split(delimiter)]
+        return []
+
+    return f
+
+
+def block_config_arg(delimiter=",", group_delimiter=":"):
+    """An argparse ``type`` parsing a block-config string."""
+    return partial(parse_block_config, delimiter=delimiter,
+                   group_delimiter=group_delimiter)
+
+
+class MyEncoder(json.JSONEncoder):
+    """JSON for paths, numpy arrays and tensors (as lists)."""
+
+    def default(self, obj):
+        if isinstance(obj, pathlib.PurePath):
+            return str(obj)
+        if isinstance(obj, torch.Tensor):
+            return obj.detach().cpu().numpy().tolist()
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        return json.JSONEncoder.default(self, obj)
 
 
 def _parse_block(s: str):
@@ -68,3 +113,29 @@ class MultiStepMilestoneScheduler:
         if self.milestones is None:
             return self.initial_value
         return self.initial_value * self.gamma ** bisect_right(self.milestones, step)
+
+
+def piecewise_constant_schedule(init_value: float, boundaries_and_scales=None):
+    """``optax.piecewise_constant_schedule``: step -> ``init_value`` times
+    every scale whose boundary the step has reached."""
+    items = sorted((boundaries_and_scales or {}).items())
+    bounds = [b for b, _ in items]
+
+    def schedule(step: int) -> float:
+        value = init_value
+        for _, scale in items[:bisect_right(bounds, step)]:
+            value *= scale
+        return value
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """``optax.cosine_decay_schedule``: step -> ``init_value`` times a cosine
+    from 1 down to ``alpha`` over ``decay_steps``, held there after."""
+
+    def schedule(step: int) -> float:
+        progress = min(step, decay_steps) / decay_steps
+        return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * progress)) + alpha)
+
+    return schedule

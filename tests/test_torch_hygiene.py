@@ -1,8 +1,10 @@
 """The port stands alone: no file of ``latentfusion_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or the JAX package, nor a library the
-GPU machine lacks (imageio, PIL, cv2, sklearn, trimesh), no entry point
-runs on the CPU unless asked to, and the host rasterizer raises when it
-cannot be built."""
+``chip_smoke.py``) imports JAX, flax, optax or the JAX package, nor a
+library the GPU machine lacks (imageio, PIL, cv2, sklearn, trimesh,
+tensorboard; the trainer's meters import TensorBoard only when it is
+there), no entry point runs on the CPU unless asked to, the host
+rasterizer and the JPEG decoder raise when they cannot be built, and the
+committed JPEG bank is what phase 13 of chip_smoke.py reads."""
 import ast
 from pathlib import Path
 
@@ -18,7 +20,7 @@ from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu", "imageio", "PIL", "cv2",
-             "sklearn", "trimesh"}
+             "sklearn", "trimesh", "tensorboard"}
 
 
 def _port_files():
@@ -70,7 +72,18 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/data/loader.py",
             "latentfusion_tpu_torch/data/bop.py",
             "latentfusion_tpu_torch/data/kinectfusion.py",
-            "latentfusion_tpu_torch/data/triplet.py"} <= names
+            "latentfusion_tpu_torch/data/triplet.py",
+            "latentfusion_tpu_torch/dtypes.py",
+            "latentfusion_tpu_torch/jpeg.py",
+            "latentfusion_tpu_torch/train/logging.py",
+            "latentfusion_tpu_torch/train/args.py",
+            "latentfusion_tpu_torch/train/trainer.py",
+            "latentfusion_tpu_torch/train/ibr_step.py",
+            "latentfusion_tpu_torch/train_reconstruct.py",
+            "latentfusion_tpu_torch/train_ibr.py",
+            "latentfusion_tpu_torch/train_unseen_real.py",
+            "latentfusion_tpu_torch/train_encoder_distill.py",
+            "latentfusion_tpu_torch/train_unseen_objects.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -269,3 +282,72 @@ def test_failed_rasterizer_build_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CXX", raising=False)
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
         rasterizer.load_library()
+
+
+def test_tensorboard_is_optional(monkeypatch, tmp_path, caplog):
+    """The trainer's meters run without TensorBoard, with the JAX package's
+    warning."""
+    import builtins
+
+    from latentfusion_tpu_torch.train.logging import MetricLogger
+
+    real_import = builtins.__import__
+
+    def no_tensorboard(name, *args, **kwargs):
+        if "tensorboard" in name:
+            raise ImportError("no tensorboard here")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_tensorboard)
+    logger = MetricLogger(tmp_path / "tb")
+    assert logger.writer is None and "tensorboard unavailable" in caplog.text
+    logger.put_scalar("loss", 1.0)
+    logger.put_image("image", np.zeros((3, 4, 4)))
+    assert logger.epoch_summary() == {"loss": 1.0}
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The training tools train on the GPU unless given --device cpu."""
+    from latentfusion_tpu_torch import (train_encoder_distill, train_ibr, train_reconstruct,
+                                        train_unseen_objects, train_unseen_real)
+
+    for main, argv in ((train_reconstruct.main, ["--save-dir", str(tmp_path),
+                                                 "--base-name", "b"]),
+                       (train_ibr.main, ["--save-dir", str(tmp_path), "--base-name", "b",
+                                         "--recon-checkpoint", str(tmp_path / "m.pth")]),
+                       (train_encoder_distill.main, ["--out", str(tmp_path)]),
+                       (train_unseen_objects.main, ["--out", str(tmp_path)]),
+                       (train_unseen_real.main, ["--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+
+
+def test_failed_jpeg_build_raises(monkeypatch, tmp_path):
+    """No fallback: the JPEG decoder's compile error raises."""
+    from latentfusion_tpu_torch import jpeg
+    from latentfusion_tpu_torch.data import rasterizer
+
+    broken = tmp_path / "jpeg.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(jpeg, "SOURCE", broken)
+    monkeypatch.setattr(rasterizer, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(jpeg, "_LIB", None)
+    with pytest.raises(RuntimeError, match="building jpeg.cpp failed"):
+        jpeg.decode_jpeg(b"\xff\xd8\xff\xd9")
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_committed_jpeg_bank():
+    """tests/data/jpeg_bank: 8 textures of 256^2 and 8 backgrounds of
+    640x480, baseline JPEGs (the JAX package's procedural writers), small."""
+    from latentfusion_tpu_torch import jpeg
+
+    bank = ROOT / "tests" / "data" / "jpeg_bank"
+    files = sorted(bank.rglob("*"))
+    assert [f.name for f in files if f.is_file()] == (
+        [f"bg_{i:03d}.jpg" for i in range(8)] + [f"tex_{i:03d}.jpg" for i in range(8)])
+    assert sum(f.stat().st_size for f in files if f.is_file()) < 1_000_000
+    for f in bank.glob("textures/*.jpg"):
+        assert jpeg.read_jpeg(f).shape == (256, 256, 3)
+    for f in bank.glob("backgrounds/*.jpg"):
+        assert jpeg.read_jpeg(f).shape == (480, 640, 3)

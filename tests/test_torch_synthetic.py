@@ -88,13 +88,17 @@ def test_indexes_png_assets(assets):
     assert [p.name for p in t.depth_background_paths] == ["depth_000.png", "depth_001.png"]
 
 
-def test_jpeg_assets_raise(tmp_path, assets):
+def test_jpeg_assets_raise(tmp_path, assets, caplog):
+    """A damaged JPEG raises in read_image; load_random_image skips it with
+    a warning, as the JAX package skips a file imageio cannot read, and
+    raises when no file of the bank reads."""
     _, t = datasets(assets)
     (tmp_path / "tex.jpg").write_bytes(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="JPEG"):
-        t.load_random_image([tmp_path / "tex.jpg"])
-    with pytest.raises(ValueError, match="JPEG"):
         tsynth.read_image(tmp_path / "tex.jpg")
+    with pytest.raises(RuntimeError, match="could not load"):
+        t.load_random_image([tmp_path / "tex.jpg"])
+    assert "failed to read image" in caplog.text
 
 
 def edge_of_drawn(drawn, shape):
