@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--unseen-latent-rank]
                           [--accuracy-seeds N [N ...] [--with-unseen]]
+                          [--eval-variants]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -39,7 +40,10 @@ line after it ends:
    each against its plain version, twice for the same bits, and timed;
    and K1-fwd and K1-bwd-vol at phase 13's shapes (the recipe's decode and
    encode at batch 8 in bf16 and fp32, train_ibr's fp32 encode and
-   decode), in their dtypes.
+   decode), in their dtypes; and K1's kernels at the shapes and dtypes of
+   phase 6's metropolis_eval run and phase 14's legs that no other row
+   holds (EVAL_K1_SHAPES: the demo family's 8^3 latents, bf16 in
+   metropolis_eval and serving_accuracy's in-process half).
 3. flagship: for each reference object (o0 and o1, 16 rendered views of
    480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -69,13 +73,16 @@ line after it ends:
    step must agree with the plain versions; ms per step, peak memory and
    a profile of one step.
 6. pose accuracy, demo family with the learned weights: the latent of 16
-   shaded views of the analytic ellipsoid, then CEM + refinement on 8
-   seeded target poses; ADD-S within a tenth of the diameter on at least 7.
-   One refinement step must agree with the plain versions. The same for
-   the Metropolis estimator as the coarse stage (tools/metropolis_eval.py's
-   128 chains, 300 iterations), and for all 8 targets as one
-   ``estimate_batch`` of CEM and refinement. ``--accuracy-seeds`` runs
-   only these three rigs, ungated, at each seed given.
+   shaded views of the analytic ellipsoid, then all 8 seeded target poses
+   as one ``estimate_batch`` of CEM and refinement (fp32); ADD-S within a
+   tenth of the diameter on at least 7. One refinement step (the first
+   target's coarse cameras) must agree with the plain versions. Then
+   ``metropolis_eval.main`` at the JAX record's budget (bf16, JAX's
+   cameras from eval_cameras.json): CEM and the Metropolis estimator (128
+   chains, 300 iterations) as the coarse stage, refinement 16 x 150, each
+   at least 7 of 8, beside the record's 8 of 8; every K1 call at a shape
+   and dtype phase 2 held. ``--accuracy-seeds`` runs only the seed-drawn
+   rigs (CEM, Metropolis, estimate_batch), ungated, at each seed given.
 7. training, flagship: the published recipe's generator step
    (train/step.py make_recon_train_step, no discriminator) with weights
    N(0, 1) from --seed, on batches of the analytic ellipsoid rendered on
@@ -92,10 +99,10 @@ line after it ends:
    whose held-out loss must fall, and ms per step with K1-bwd-vol's tiled
    kernel and with the atomic kernel it replaced, in turns.
 8. the pose service (latentfusion_tpu_torch/serve.py) at flagship width,
-   weights from --seed: two rounds of ping, register o0 and o1 (views 0-14),
+   weights from --seed: a round of ping, register o0 and o1 (views 0-14),
    estimates of view 15 of o0, of that frame twice and of o0 and o1
    together, a malformed line, an unknown command and a shutdown, through
-   ``serve_lines``. The responses must be the protocol's, the single
+   ``serve_lines``, then a warm round of o0's requests alone. The responses must be the protocol's, the single
    estimate the direct coarse + fine estimate with the same seed, and each
    object's refinement step in the two-object batch its single-object
    step. Seconds, launches and peak memory per request.
@@ -203,9 +210,31 @@ line after it ends:
    (6 steps each, the first with one evaluation target): s per step, a
    finite loss, each npz read back by the evaluation half's loader.
 
+14. the evaluation harnesses, demo family with the learned weights,
+   written as a reference-schema ``.pth`` (read back bit for bit): (a)
+   ``evaluate_bop.main`` on a LINEMOD-layout scene of the ellipsoid (40
+   frames at 640x480, the checkpoint's f 615: at LINEMOD's camera it
+   misses in JAX too, PERF.md §6; PNGs by png.py), 16 reference
+   views, 8 frames in one ``--batch-frames 8`` run (ADD-S 0.1d on at least
+   6) and one frame alone; (b) ``poserbpf_comparison.main`` on the
+   committed synthetic MOPED capture (tests/data/moped_synth), refining
+   with configs/adam_track.toml (adam_quick at lr 1e-3), 8 tracked frames,
+   ADD-S 0.1d against the ellipsoid's points on at least 6; (c)
+   ``serving_accuracy.main`` at its defaults (2 held-out objects of
+   pool-128, 3 rounds, latent ranking 0.2): ``estimate_batch`` (bf16) on
+   at least 4 of 6, the service process on at least 5 of 6, beside JAX's
+   records (5 and 6); (d) ``examples.pose_estimation`` on the built-in
+   cube and ``examples.reconstruction`` (its PNG read back, 5 row bands:
+   the IBR color drawn). Each leg: s,
+   peak memory, launches (K1-fwd, K1-bwd-grid, K2-fwd and K2-bwd must run,
+   but K1-bwd-grid and K2-bwd in the reconstruction example; K1-bwd-vol
+   in (c)), every K1 call at a shape and dtype phase 2 held.
+   ``--eval-variants`` runs (a) and (b) alone under the settings they do
+   not run, ungated (phase_eval_variants).
+
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phases 10-13's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10-14's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -268,8 +297,10 @@ TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_IN, TRAIN_OUT = 8, 2, 8, 24
 # The kernels a step that trains the Sculptor must launch (phases 7, 11
 # (a) and (b), 12 (a), and 13's recipe and rigs).
 TRAIN_STEP_KERNELS = ("K1", "K1bv", "K2", "K2b")
-TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 12, 10
-TRAIN_TIMED = 10  # steps timed with CUDA events, after 2 warm-up steps
+# The pool run: 7 steps, the held-out loss at steps 0 and 6 (12 and 10
+# until the evaluation harnesses' phase 14 needed the time).
+TRAIN_POOL, TRAIN_STEPS, TRAIN_EVERY = 3, 7, 6
+TRAIN_TIMED = 5  # steps timed with CUDA events, after 2 warm-up steps
 # Phase 11 (a): the training tool's default architecture at input 256
 # (latentfusion_tpu/train/args.py:94-125): camera volumes and latent of 32^3.
 GAN_INPUT_SIZE, GAN_LATENT_SIZE = 256, 32
@@ -899,8 +930,9 @@ def k1_at(fused_sample, op, label, vol, grid, gout=None, padding="border",
         plan = fused_sample.bwd_grid_plan(vol.shape, n, grid[0, ..., 0].numel())
         run = lambda: fused_sample.grid_sample_3d_bwd_grid(vol, grid, gout, padding)
         plain = lambda: fused_sample.grid_sample_3d_bwd_grid_plain(vol, grid, gout, padding)
+        grid_lib = grid.to(dtype)  # aten takes one dtype for its three inputs
         lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
-            gout, vol_n, grid, 0, pad, False, [False, True])
+            gout, vol_n, grid_lib, 0, pad, False, [False, True])
         nbytes = (gout.numel() + vol.numel()) * size + 2 * grid.numel() * 4
         flops = 2.0 * 27 * gout.numel() + 60.0 * samples
     else:
@@ -1750,16 +1782,18 @@ def gradient_check(label, grads_fn, network, kernels, noise_only=(),
         fail(f"{label}: a parameter that does not reach the output has a gradient")
 
 
-def phase_pose_accuracy(model, kernels, seed, checks=True):
-    """The oracle rig of tools/train_encoder_distill.py: ADD-S of CEM +
-    refinement on 8 targets with the learned demo weights; then of the
+def phase_pose_accuracy(model, kernels, seed, checks=True, legs=("CEM", "Metropolis")):
+    """The oracle rig of tools/train_encoder_distill.py (fp32): ADD-S of
+    CEM + refinement on 8 targets with the learned demo weights and of the
     Metropolis estimator as the coarse stage at tools/metropolis_eval.py's
-    budget with the same refinement; then of all 8 targets as one
-    ``estimate_batch`` of CEM and refinement (the latent 8 times, as the
-    service batches frames of one object). The reference views and targets
-    are drawn from ``seed``. Each gated at 7 of 8. ``checks`` adds a
-    refinement step against the plain versions. Returns the launch counts
-    of the Metropolis estimates and of the batch, and the hits."""
+    budget with the same refinement (``legs``; the main run takes them from
+    ``metropolis_eval.main``, phase_metropolis_eval); then of all 8 targets
+    as one ``estimate_batch`` of CEM and refinement (the latent 8 times, as
+    the service batches frames of one object). The reference views and
+    targets are drawn from ``seed``. Each gated at 7 of 8. ``checks`` adds
+    a refinement step against the plain versions (from the batch's first
+    coarse cameras) and the gates. Returns the launch counts of each leg
+    and the hits."""
     from latentfusion_tpu_torch import testing, zoo
     from latentfusion_tpu_torch.camera import Camera
     from latentfusion_tpu_torch.pose import estimation, metrics
@@ -1807,6 +1841,8 @@ def phase_pose_accuracy(model, kernels, seed, checks=True):
     hits, single_s = {}, {}
     counts = {}
     for label, est in (("CEM", coarse), ("Metropolis", metropolis)):
+        if label not in legs:
+            continue
         hits[label], single_s[label] = 0, []
         reset_counters(kernels)
         for i, (gt, target) in enumerate(zip(gt_cams, targets)):
@@ -1815,11 +1851,6 @@ def phase_pose_accuracy(model, kernels, seed, checks=True):
             best, stats = fine.estimate(z, target, camera=cams[:16])
             torch.cuda.synchronize()
             single_s[label].append(time.perf_counter() - t0)
-            if i == 0 and label == "CEM" and checks:
-                zcams = cams[:16].zoom(None, model.input_size, model.camera_dist)
-                gradient_check("demo refinement step",
-                               lambda: fine.loss_and_grads(z, target, zcams),
-                               model.photographer, kernels)
             hits[label] += score(label, i, gt, cams, best, stats)
         counts[label] = read_counters(kernels)
         say(f"  {label}: ADD-S within 0.1 diameter: {hits[label]}/8 = {hits[label] / 8:.3f} "
@@ -1839,11 +1870,17 @@ def phase_pose_accuracy(model, kernels, seed, checks=True):
     counts["batch"] = read_counters(kernels)
     hits["batch"] = sum(score("batch", i, gt, cams, best, {"num_steps": stats["num_steps"]})
                         for i, (gt, cams, best) in enumerate(zip(gt_cams, coarse_out, results)))
+    single = (f" against {sum(single_s['CEM']):.2f} s for the 8 single CEM estimates"
+              if "CEM" in single_s else "")
     say(f"  estimate_batch of the 8 targets (CEM then refinement, {stats['num_steps']} "
-        f"steps): ADD-S within 0.1 diameter {hits['batch']}/8; {batch_s:.2f} s per batch "
-        f"against {sum(single_s['CEM']):.2f} s for the 8 single CEM estimates; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
-        f"{json.dumps(counts['batch'])}")
+        f"steps): ADD-S within 0.1 diameter {hits['batch']}/8; {batch_s:.2f} s per "
+        f"batch{single}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {json.dumps(counts['batch'])}")
+    if checks:
+        zcams = coarse_out[0][:16].zoom(None, model.input_size, model.camera_dist)
+        gradient_check("demo refinement step",
+                       lambda: fine.loss_and_grads(z, targets[0], zcams),
+                       model.photographer, kernels)
     if checks:
         for label, n in hits.items():
             if n < 7:
@@ -1916,10 +1953,11 @@ def batch_step_check(fine, z_objs, targets, cams) -> None:
 
 def phase_service(model, kernels, seed):
     """The service at flagship width: a PoseService (cross_entropy_quick
-    then adam_quick, top 8) driven through serve_lines, two rounds of
-    ping, register o0 and o1 (views 0-14 of each), an estimate of
-    view 15 of o0, of that frame twice, of o0 and o1 together, a malformed
-    line, an unknown command and a shutdown. Gates: the responses; the
+    then adam_quick, top 8) driven through serve_lines: a round of ping,
+    register o0 and o1 (views 0-14 of each), an estimate of view 15 of o0,
+    of that frame twice, of o0 and o1 together, a malformed line, an
+    unknown command and a shutdown; then a warm round of the same without
+    o1 and the two-frame requests. Gates: the responses; the
     single estimate against the direct coarse + fine estimate with the same
     seed; a two-object step against its objects' single-object steps.
     Prints seconds, launches and peak memory per request. Returns the warm
@@ -1975,23 +2013,30 @@ def phase_service(model, kernels, seed):
             return resp
 
         service.handle = counted
-        rounds = []
-        for label in ("first", "warm"):
+        # The warm round is o0's alone (phase 14 needed the time).
+        warm = [r for r in requests if not isinstance(r, dict) or r["id"] not in (
+            "register o1", "estimate two frames of o0", "estimate o0 and o1")]
+        single = []
+        for label, reqs in (("first", requests), ("warm, o0 only", warm)):
             per_request.clear()
             out = io.StringIO()
             stopped = serve.serve_lines(service, io.StringIO("\n".join(
-                r if isinstance(r, str) else json.dumps(r) for r in requests) + "\n"), out)
+                r if isinstance(r, str) else json.dumps(r) for r in reqs) + "\n"), out)
             resp = [json.loads(line) for line in out.getvalue().splitlines()]
-            rounds.append(resp)
+            single.append(resp[[r.get("id") if isinstance(r, dict) else None
+                                for r in reqs].index("estimate one frame")])
+            expect_ok = [isinstance(r, dict) and r["cmd"] != "teleport" for r in reqs]
+            pairs = [resp[i] for i, r in enumerate(reqs)
+                     if isinstance(r, dict) and isinstance(r.get("npz"), list)]
             say(f"  {label} round: {len(resp)} responses, ok "
                 f"{[r['ok'] for r in resp]}, shutdown {stopped}")
             for rid, secs, counts, peak in per_request:
                 say(f"    {rid}: {secs:.3f} s, peak memory {peak:.2f} GB, launches "
                     f"{json.dumps(counts)}")
-            if not (stopped and [r["ok"] for r in resp] == [True] * 6 + [False] * 2 + [True]
+            if not (stopped and [r["ok"] for r in resp] == expect_ok
                     and resp[-1].get("shutdown")
-                    and [r.get("id") for r in resp[7:]] == ["unknown command", "shutdown"]
-                    and len(resp[4]["poses"]) == 2 and len(resp[5]["poses"]) == 2):
+                    and [r.get("id") for r in resp[-2:]] == ["unknown command", "shutdown"]
+                    and all(len(r["poses"]) == 2 for r in pairs)):
                 fail(f"service: the {label} round's responses are not the protocol's: "
                      f"{[{k: v for k, v in r.items() if k != 'poses'} for r in resp]}")
             warm_counts = {k: sum(c[k] for _, _, c, _ in per_request) for k in per_request[0][2]}
@@ -2001,13 +2046,13 @@ def phase_service(model, kernels, seed):
         g = torch.Generator(device=model.device).manual_seed(seed)
         z0 = service.latents["o0"]
         direct = service.estimate_one(z0, target, N_REFINE, g)
-        got = torch.tensor(rounds[1][3]["extrinsic"], device=model.device)
+        got = torch.tensor(single[1]["extrinsic"], device=model.device)
         err = rel_err(got, direct.extrinsic[0])
         same = bool(torch.equal(got, direct.extrinsic[0]))
         say(f"  the single-frame response against the direct coarse + fine estimate with "
             f"the same seed: extrinsic rel err {err:.3g} (tol {NET_TOL}), same bits {same}; "
             f"first and warm rounds' poses the same "
-            f"{rounds[0][3]['extrinsic'] == rounds[1][3]['extrinsic']}")
+            f"{single[0]['extrinsic'] == single[1]['extrinsic']}")
         if not err <= NET_TOL:
             fail("service: the single-frame response is not the direct estimate")
 
@@ -2466,7 +2511,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/13: the model options and the GAN training step: the training tool's "
+    say("== phase 11/14: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2786,7 +2831,7 @@ def phase_data_shapes(fused_sample, seed):
 
 def phase_twelve(kernels, seed, held, smi) -> dict:
     """Phase 12 (a) and (b); returns the launch counts by path."""
-    say("== phase 12/13: the data path: meshes, the rasterizer, augmentation and the loader "
+    say("== phase 12/14: the data path: meshes, the rasterizer, augmentation and the loader "
         "into the flagship training step; held-out objects of unseen_real.npz on "
         "rasterized views")
     t12 = time.perf_counter()
@@ -3701,7 +3746,7 @@ def phase_train_rigs(kernels, smi) -> dict:
 
 def phase_thirteen(kernels, seed, held, smi) -> dict:
     """Phase 13 (a), (b) and (c); returns the launch counts by path."""
-    say("== phase 13/13: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
+    say("== phase 13/14: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
         "JPEG banks), --resume --branch, the .pth rendered; train_ibr on it; the rigs' "
         "training halves")
     t13 = time.perf_counter()
@@ -3719,6 +3764,407 @@ def phase_thirteen(kernels, seed, held, smi) -> dict:
             "trainer_pth_render": recipe["render"], "train_ibr": ibr["counts"], **rigs}
 
 
+# ---------------------------------------------------------------- phase 14
+EVAL_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "eval"
+MOPED = ROOT / "tests" / "data" / "moped_synth"
+METROPOLIS_RECORD = ROOT / "artifacts" / "metropolis" / "pose_eval.json"
+SERVING_RECORD = ROOT / "artifacts" / "serving" / "accuracy.json"
+# The scene's camera: the checkpoint's own, the LINEMOD-style canonical
+# intrinsic of zoo.canonical_camera (f 615 at 640x480). The zoom keeps a
+# camera's focal, so the encoder-distill weights, trained at f 615 only, see
+# the object 7 % small at LINEMOD's published f 572.4 (PERF.md §6).
+BOP_K = ((615.0, 0.0, 320.0), (0.0, 615.0, 240.0), (0.0, 0.0, 1.0))
+LINEMOD_K = ((572.4114, 0.0, 325.2611), (0.0, 573.5704, 242.0490), (0.0, 0.0, 1.0))
+# The frames' translation noise about (0, 0, 5.78): none, as the accuracy
+# rigs' targets (metropolis_eval, phase 6); RIG_VIEW_JITTER is their
+# reference views' (zoo.random_view_cameras), run by --eval-variants.
+BOP_JITTER, RIG_VIEW_JITTER = (0.0, 0.0, 0.0), (0.1, 0.1, 0.25)
+# MOPED tracking refines at a tenth of adam_quick's learning rate (PERF.md §6).
+TRACK_CONFIG = CONFIGS / "adam_track.toml"
+BOP_FRAMES, BOP_DIAMETER_MM = 40, 100.0
+BOP_GATE, MOPED_GATE, METROPOLIS_GATE = 6, 6, 7  # of 8
+SERVING_GATES = {"estimate_batch": 4, "served": 5}  # of 6 (JAX's record: 5 and 6)
+# The kernels each evaluation leg must launch (the pose path's four; the
+# serving record's latent ranking term also autoencodes, K1-bwd-vol).
+EVAL_KERNELS = ("K1", "K1b", "K2", "K2b")
+
+
+# K1's calls on phase 6's metropolis_eval run and phase 14's legs, by (op,
+# volume, grids, dtype of the volume (fwd) or cotangent (bwd)), as each leg
+# prints them: the demo family's 8^3
+# latent of 128 channels; 16 views' camera->object sampling, renders of
+# 128 hypotheses a frame, refinements of 8 or 16 a frame, the latent term's
+# autoencode of 16 hypotheses an object.
+_DEMO = (128, 8, 8, 8)
+EVAL_K1_SHAPES = (
+    # metropolis_eval (bf16): the build, CEM and Metropolis renders, refinement 16.
+    ("fwd", (16, *_DEMO), 16, "bfloat16"), ("fwd", (1, *_DEMO), 128, "bfloat16"),
+    ("fwd", (1, *_DEMO), 16, "bfloat16"), ("bwd_grid", (1, *_DEMO), 16, "bfloat16"),
+    # serving_accuracy's in-process half (bf16): two objects, the latent term.
+    ("fwd", (2, *_DEMO), 2, "bfloat16"), ("fwd", (2, *_DEMO), 256, "bfloat16"),
+    ("fwd", (2, *_DEMO), 32, "bfloat16"), ("bwd_grid", (2, *_DEMO), 32, "bfloat16"),
+    ("fwd", (32, *_DEMO), 32, "bfloat16"), ("bwd_grid", (32, *_DEMO), 32, "bfloat16"),
+    ("bwd_vol", (32, *_DEMO), 32, "bfloat16"),
+    # evaluate_bop, 8 frames in one batch and one alone; poserbpf_comparison;
+    # the pose example (8 views); the reconstruction example (6 views) (fp32).
+    ("fwd", (16, *_DEMO), 16, "float32"), ("fwd", (8, *_DEMO), 1024, "float32"),
+    ("fwd", (8, *_DEMO), 64, "float32"), ("bwd_grid", (8, *_DEMO), 64, "float32"),
+    ("fwd", (1, *_DEMO), 128, "float32"), ("fwd", (1, *_DEMO), 8, "float32"),
+    ("bwd_grid", (1, *_DEMO), 8, "float32"), ("fwd", (8, *_DEMO), 8, "float32"),
+    ("fwd", (6, *_DEMO), 6, "float32"), ("fwd", (1, *_DEMO), 6, "float32"),
+    ("fwd", (1, *_DEMO), 1, "float32"))
+
+
+def phase_eval_shapes(fused_sample, seed, held):
+    """K1 at the shapes of EVAL_K1_SHAPES that no earlier row of phase 2
+    holds (``held``) in their dtype, against the plain versions: each
+    volume random, its grids those of hypothesis cameras around o0 at the
+    demo family's 128^2. Returns the rows and the (op, volume, grids,
+    dtype) held."""
+    from latentfusion_tpu_torch import transforms
+    from latentfusion_tpu_torch.camera import Camera
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    obs = reference_views(0, dev)
+    rows = []
+    for op, vol, grids, dtype in EVAL_K1_SHAPES:
+        if (op, vol, grids, dtype) in held:
+            continue
+        blocks = -(-grids // N_HYPOTHESES)
+        cams = Camera.cat([hypothesis_cameras(obs, UNSEEN_INPUT_SIZE, CAMERA_DIST, g)
+                           for _ in range(blocks)])[:grids]
+        grid = transforms.object_to_camera_grid(cams, vol[2])
+        v = torch.randn(*vol, generator=g, device=dev)
+        gout = (None if op == "fwd" else
+                torch.randn(grids, vol[1], *grid.shape[1:4], generator=g, device=dev))
+        rows.append(k1_at(fused_sample, op, "evaluation harnesses", v, grid, gout,
+                          dtype=getattr(torch, dtype)))
+        del v, gout, grid
+    torch.cuda.empty_cache()
+    return rows, {(r["op"], tuple(r["vol"]), r["grids"], r["dtype"]) for r in rows}
+
+
+def write_demo_pth(state, path) -> None:
+    """The demo family with ``state``'s weights as a reference-schema
+    ``.pth`` (``LatentFusionModel.from_checkpoint``'s input); reading it
+    back must give the same tensors, bit for bit."""
+    from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    common = dict(projection_type="factor", cube_size=1.0, scale_mode="nearest")
+    sculptor = dict(in_size=zoo.DEMO_INPUT_SIZE, image_config=zoo.DEMO_SCULPTOR_IMAGE_CONFIG,
+                    camera_config=zoo.DEMO_SCULPTOR_CAMERA_CONFIG,
+                    object_config=zoo.DEMO_SCULPTOR_OBJECT_CONFIG, input_color=True,
+                    input_depth=True, input_mask=True, **common)
+    photographer = dict(in_size=zoo.DEMO_INPUT_SIZE // 16,
+                        image_config=zoo.DEMO_PHOTOGRAPHER_IMAGE_CONFIG,
+                        camera_config=zoo.DEMO_PHOTOGRAPHER_CAMERA_CONFIG, object_config=None,
+                        predict_color=False, predict_depth=True, predict_mask=True, **common)
+    fuser = zoo.demo_fuser(device="cpu")
+
+    def weights(name):
+        return {k: torch.as_tensor(v).detach().cpu().clone() for k, v in state[name].items()}
+
+    torch.save({"name": "encoder_distill", "epoch": 0, "meter_hists": {},
+                "args": {"camera_dist": zoo.DEMO_CAMERA_DIST, "no_discriminator": True},
+                "modules": {
+                    "sculptor": {"args": sculptor, "state_dict": weights("sculptor")},
+                    "photographer": {"args": photographer,
+                                     "state_dict": weights("photographer")},
+                    "fuser": {"type": "GRUFuser", "args": {"in_channels": fuser.in_channels,
+                                                           "cube_size": fuser.cube_size},
+                              "state_dict": weights("fuser")}}}, path)
+    model = LatentFusionModel.from_checkpoint(path)
+    for name in ("sculptor", "fuser", "photographer"):
+        got = getattr(model, name).state_dict()
+        if set(got) != set(state[name]) or not all(
+                torch.equal(got[k].cpu(), torch.as_tensor(v).cpu())
+                for k, v in state[name].items()):
+            fail(f"the .pth's {name} does not read back as the npz's tensors")
+    say(f"  {path.name}: the demo family with encoder_distill.npz's weights, read back by "
+        f"from_checkpoint bit for bit")
+    del model
+
+
+def eval_leg(label, kernels, fn, held, smi, required=EVAL_KERNELS) -> dict:
+    """``fn()`` with the counters set to 0 just before and K1's calls
+    recorded by (op, volume, grids, dtype); fails if a kernel of
+    ``required`` did not run or (``held`` not None) a K1 call is at a shape
+    and dtype phase 2 did not hold. Prints s, peak memory and launches."""
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    calls = record_k1(kernels[0], lambda: out.update(result=fn()), dtypes=True)
+    out.update(seconds=time.perf_counter() - t0, counts=read_counters(kernels),
+               peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30, calls=calls)
+    say(f"  {label}: {out['seconds']:.1f} s, peak memory {out['peak_gb']:.2f} GiB, launches "
+        f"{json.dumps(out['counts'])} on {smi}; K1 calls (op, volume, grids, dtype: calls) "
+        f"{json.dumps({str(k): v for k, v in calls.items()})}")
+    if not all(out["counts"][k] > 0 for k in required):
+        fail(f"{label}: a kernel of {required} was not launched: {out['counts']}")
+    if held is not None:
+        missing = [k for k in calls if k not in held]
+        if missing:
+            fail(f"{label}: K1 ran at shapes phase 2 did not hold in that dtype: {missing}")
+    return out
+
+
+def write_bop_scene(root: Path, seed: int, k=BOP_K, jitter=BOP_JITTER):
+    """A LINEMOD-layout scene of the oracle ellipsoid (ORACLE_AXES, 100 mm
+    across) at BOP_FRAMES random poses (uniform rotations, the translation
+    (0, 0, 5.78) + N(0, ``jitter``) in object units), camera ``k``
+    (BOP_K unless given), 640x480: rgb
+    (shaded), depth (uint16 mm), mask_visib, scene_camera.json,
+    scene_gt.json, models_eval/models_info.json and the object's PLY, all
+    PNGs by png.write_png. Returns the scene directory."""
+    from latentfusion_tpu_torch import png, testing, three, zoo
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.three import orientation, quaternion
+
+    scene = root / "test" / "000001"
+    for d in ("rgb", "depth", "mask_visib"):
+        (scene / d).mkdir(parents=True, exist_ok=True)
+    (root / "models_eval").mkdir(parents=True, exist_ok=True)
+    (root / "models").mkdir(exist_ok=True)
+    mm = BOP_DIAMETER_MM / ORACLE_DIAMETER
+    half = [a * mm for a in ORACLE_AXES]
+    (root / "models_eval" / "models_info.json").write_text(json.dumps({"1": {
+        "diameter": BOP_DIAMETER_MM, "min_x": -half[0], "min_y": -half[1], "min_z": -half[2],
+        "size_x": 2 * half[0], "size_y": 2 * half[1], "size_z": 2 * half[2]}}))
+    pts = orientation.evenly_distributed_points(512, device="cpu") * torch.tensor(half)
+    (root / "models_eval" / "obj_000001.ply").write_text("\n".join(
+        ["ply", "format ascii 1.0", f"element vertex {len(pts)}", "property float x",
+         "property float y", "property float z", "element face 1",
+         "property list uchar int vertex_indices", "end_header"]
+        + [f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}" for p in pts.tolist()] + ["3 0 1 2"]) + "\n")
+    g = torch.Generator().manual_seed(seed + 14)
+    quats = quaternion.random(BOP_FRAMES, g)
+    trans = (torch.tensor([0.0, 0.0, zoo.DEMO_CAMERA_DIST])
+             + torch.randn(BOP_FRAMES, 3, generator=g) * torch.tensor(jitter))
+    extrinsic = three.to_extrinsic_matrix(trans, quats)
+    k = torch.tensor(k)
+    oracle = testing.EllipsoidOracleModel(zoo.DEMO_INPUT_SIZE, zoo.DEMO_CAMERA_DIST, ORACLE_AXES)
+    cams = Camera(k.expand(BOP_FRAMES, 3, 3), extrinsic, width=640, height=480)
+    obs = oracle.make_observation(cams, shaded=True)
+    color = (obs.color.clamp(0, 1) * 255).round().to(torch.uint8).permute(0, 2, 3, 1).cpu()
+    mask = obs.mask[:, 0] > 0.5
+    depth = (obs.depth[:, 0] * mm * mask).round().to(torch.int32).cpu().numpy()
+    cam_json, gt_json = {}, {}
+    for i in range(BOP_FRAMES):
+        png.write_png(scene / "rgb" / f"{i:06d}.png", color[i].numpy())
+        png.write_png(scene / "depth" / f"{i:06d}.png", depth[i].astype(np.uint16))
+        png.write_png(scene / "mask_visib" / f"{i:06d}_000000.png",
+                      mask[i].cpu().numpy().astype(np.uint8) * 255)
+        cam_json[str(i)] = {"cam_K": k.reshape(-1).tolist(), "depth_scale": 1.0}
+        gt_json[str(i)] = [{"obj_id": 1, "cam_R_m2c": extrinsic[i, :3, :3].reshape(-1).tolist(),
+                            "cam_t_m2c": (extrinsic[i, :3, 3] * mm).tolist()}]
+    (scene / "scene_camera.json").write_text(json.dumps(cam_json))
+    (scene / "scene_gt.json").write_text(json.dumps(gt_json))
+    del obs
+    return scene
+
+
+def phase_bop(kernels, held, smi, pth, seed) -> dict:
+    """Phase 14 (a): evaluate_bop.main on a LINEMOD-layout oracle scene, 16
+    reference views, 8 frames in one estimate_batch (gated at BOP_GATE
+    within ADD-S 0.1d), then one frame alone."""
+    from latentfusion_tpu_torch import evaluate_bop
+    from latentfusion_tpu_torch.pose import format as pf
+
+    t0 = time.perf_counter()
+    root = EVAL_DIR / "lm"
+    scene = write_bop_scene(root, seed)
+    say(f"  BOP scene: {BOP_FRAMES} frames written in {time.perf_counter() - t0:.1f} s")
+    argv = ["--checkpoint", str(pth), "--dataset-path", str(root), "--scene-path", str(scene),
+            "--object-id", "1", "--num-input-views", "16", "--seed", str(seed)]
+    runs = {}
+    for name, extra in (("batch", ["--num-frames", "8", "--batch-frames", "8"]),
+                        ("single", ["--num-frames", "1"])):
+        leg = eval_leg(f"evaluate_bop {' '.join(extra)}", kernels, lambda: evaluate_bop.main(
+            argv + extra + ["--out", str(EVAL_DIR / f"bop_{name}.json")]), held, smi)
+        rows, acc = leg["result"]
+        hits = sum(r["add_s_01d"] for r in rows)
+        means = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]
+                 if isinstance(rows[0][k], float) and k != "seconds"}
+        say(f"    ADD-S within 0.1d on {hits} of {len(rows)} frames; s per frame "
+            f"{json.dumps([r['seconds'] for r in rows])}; add_s (mm) "
+            f"{json.dumps([round(r['add_s'], 2) for r in rows])}\n"
+            + pf.metrics_table(means, name=f"    obj_000001 mean ({len(rows)} frames)")
+            + "\n" + pf.metrics_table(acc, name="    accuracy"))
+        runs[name] = {"hits": hits, "frames": len(rows), "counts": leg["counts"],
+                      "s_per_frame": rows[0]["seconds"], "seconds": leg["seconds"],
+                      "peak_gb": leg["peak_gb"]}
+    if runs["batch"]["hits"] < BOP_GATE:
+        fail(f"BOP: {runs['batch']['hits']} of 8 frames within ADD-S 0.1d, fewer than "
+             f"{BOP_GATE}")
+    return runs
+
+
+def phase_moped(kernels, held, smi, pth, fine_config=TRACK_CONFIG, gate=MOPED_GATE) -> dict:
+    """Phase 14 (b): poserbpf_comparison.main on the committed synthetic
+    MOPED capture, refining with ``fine_config``: frame 0 coarse then fine,
+    7 frames warm-started; ADD-S of each against the ellipsoid's points,
+    gated at ``gate`` of 8."""
+    from latentfusion_tpu_torch import poserbpf_comparison
+    from latentfusion_tpu_torch.pose import metrics
+    from latentfusion_tpu_torch.three import orientation
+
+    leg = eval_leg(f"poserbpf_comparison --fine-config {fine_config.name}", kernels,
+                   lambda: poserbpf_comparison.main(
+                       ["--checkpoint", str(pth), "--reference-scene", str(MOPED / "reference"),
+                        "--eval-scene", str(MOPED / "evaluation"), "--fine-config",
+                        str(fine_config), "--out", str(EVAL_DIR / "moped")]), held, smi)
+    rows, cameras = leg["result"]
+    dev = torch.device("cuda")
+    points = (orientation.evenly_distributed_points(512, device=dev)
+              * torch.tensor(ORACLE_AXES, device=dev))
+    add_s = [metrics.camera_metrics(gt, est, points, 1.0)["add_s"] for gt, est in cameras]
+    hits = sum(a < 0.1 * ORACLE_DIAMETER for a in add_s)
+    seconds = [r["seconds"] for r in rows]
+    say(f"    tracked {len(rows)} frames: ADD-S (object units) "
+        f"{json.dumps([round(a, 4) for a in add_s])}, within 0.1d on {hits}; the tool's rotation "
+        f"and translation distances {json.dumps([[round(r['rotation_dist'], 4), round(r['translation_dist'], 4)] for r in rows])}; "
+        f"s for frame 0 {seconds[0]:.3f}, s per warm frame "
+        f"{json.dumps([round(s, 3) for s in seconds[1:]])} on {smi}")
+    if hits < gate:
+        fail(f"MOPED: {hits} of {len(rows)} tracked frames within ADD-S 0.1d, fewer than "
+             f"{gate}")
+    return {"hits": hits, "frames": len(rows), "counts": leg["counts"],
+            "cold_s": seconds[0], "warm_s": float(np.mean(seconds[1:])),
+            "seconds": leg["seconds"], "peak_gb": leg["peak_gb"]}
+
+
+def phase_metropolis_eval(kernels, held, smi, seed) -> dict:
+    """Phase 6's CEM and Metropolis legs: metropolis_eval.main at the
+    record's budget (8 targets, 128 chains x 300 MH steps, CEM 128 x 10,
+    refinement 16 x 150; bf16), each gated at METROPOLIS_GATE of 8."""
+    from latentfusion_tpu_torch import metropolis_eval
+
+    leg = eval_leg("metropolis_eval", kernels, lambda: metropolis_eval.main(
+        ["--out", str(EVAL_DIR / "metropolis"), "--checkpoint",
+         str(DISTILL / "encoder_distill.npz"), "--seed", str(seed)]), held, smi)
+    summary, record = leg["result"], json.loads(METROPOLIS_RECORD.read_text())
+    out = {"counts": leg["counts"], "seconds": leg["seconds"], "peak_gb": leg["peak_gb"]}
+    for part in ("metropolis", "cem_control"):
+        hits = sum(r["add_s_01d"] for r in summary[part]["targets"])
+        out[part] = {"hits": hits, "warm_s": summary[part]["warm_seconds_per_object"]}
+        say(f"    {part}: ADD-S within 0.1d {hits}/8 = {summary[part]['add_s_0.1d']:.3f} "
+            f"(the JAX record {record[part]['add_s_0.1d']:.3f}); s per target "
+            f"{json.dumps([r['seconds'] for r in summary[part]['targets']])}")
+        if hits < METROPOLIS_GATE:
+            fail(f"metropolis_eval ({part}): {hits}/8 within 0.1d, fewer than "
+                 f"{METROPOLIS_GATE}")
+    return out
+
+
+def phase_serving(kernels, held, smi) -> dict:
+    """Phase 14 (c): serving_accuracy.main at its defaults (2 held-out
+    objects of pool-128, 3 rounds, latent ranking 0.2): estimate_batch in
+    process (bf16), then the frames through the service process."""
+    from latentfusion_tpu_torch import serving_accuracy
+
+    leg = eval_leg("serving_accuracy", kernels, lambda: serving_accuracy.main(
+        ["--out", str(EVAL_DIR / "serving"), "--checkpoint",
+         str(POOL128 / "unseen_objects.npz")]), held, smi, required=EVAL_KERNELS + ("K1bv",))
+    summary, record = leg["result"], json.loads(SERVING_RECORD.read_text())
+    out = {"counts": leg["counts"], "seconds": leg["seconds"], "peak_gb": leg["peak_gb"]}
+    for half, gate in SERVING_GATES.items():
+        rounds = summary[half]["rounds"]
+        hits = sum(d["add_s_01d"] for r in rounds for d in r["objects"])
+        out[half] = {"hits": hits, "warm_s": summary[half]["warm_seconds_joint"],
+                     "cold_s": rounds[0]["seconds_joint"]}
+        say(f"    {half}: ADD-S within 0.1d {hits}/6 = {summary[half]['add_s_0.1d']:.3f} "
+            f"(the JAX record {record[half]['add_s_0.1d']:.3f}); s per round of 2 objects "
+            f"{json.dumps([r['seconds_joint'] for r in rounds])}")
+        if hits < gate:
+            fail(f"serving_accuracy ({half}): {hits}/6 within 0.1d, fewer than {gate}")
+    return out
+
+
+def phase_examples(kernels, held, smi, pth) -> dict:
+    """Phase 14 (d): the pose example in synthetic mode on the built-in
+    cube and the reconstruction example, both on the .pth."""
+    from latentfusion_tpu_torch import png
+    from latentfusion_tpu_torch.examples import pose_estimation, reconstruction
+
+    pose = eval_leg("examples.pose_estimation (cube)", kernels,
+                    lambda: pose_estimation.main(["--checkpoint", str(pth)]), held, smi)
+    say("    its table:\n" + pose["result"])
+    out_png = EVAL_DIR / "reconstruction.png"
+    recon = eval_leg("examples.reconstruction", kernels, lambda: reconstruction.main(
+        ["--checkpoint", str(pth), "--out", str(out_png)]), held, smi, required=("K1", "K2"))
+    grid = recon["result"]
+    back = png.read_png(out_png)
+    rows = back.shape[0] // 162  # a row band: one 160^2 image padded by 2
+    say(f"    {out_png.name}: {back.shape} read back by png.read_png (the grid {grid.shape}; "
+        f"{rows} row bands)")
+    if back.shape != (grid.shape[1], grid.shape[2], 3) or back.shape[1] != 162 or (
+            not np.array_equal(back, (grid.transpose(1, 2, 0) * 255).astype(np.uint8))):
+        fail(f"examples.reconstruction: the PNG reads back at {back.shape}")
+    if rows != 5:  # the example's try swallows a failed render_ibr_basic
+        fail(f"examples.reconstruction: {rows} row bands, not 5: the IBR color was not drawn")
+    return {"pose": pose["counts"], "reconstruction": recon["counts"],
+            "pose_s": pose["seconds"], "reconstruction_s": recon["seconds"]}
+
+
+def phase_eval_variants(kernels, smi, state, seed) -> None:
+    """``--eval-variants``: phase 14 (a) and (b) under the settings they do
+    not run, ungated: the BOP scene at LINEMOD's published camera and with
+    the rigs' view noise, each at scene seeds ``seed`` to ``seed`` + 2, the
+    gated scene at ``seed`` + 1 to + 5; the MOPED tracking with the tool's
+    default refinement (adam_quick, lr 1e-2)."""
+    from latentfusion_tpu_torch import evaluate_bop
+
+    EVAL_DIR.mkdir(parents=True, exist_ok=True)
+    pth = EVAL_DIR / "encoder_distill.pth"
+    write_demo_pth(state, pth)
+    phase_moped(kernels, None, smi, pth, CONFIGS / "adam_quick.toml", gate=0)
+    cases = ([("LINEMOD's camera", LINEMOD_K, BOP_JITTER, s) for s in range(seed, seed + 3)]
+             + [("the rigs' view noise", BOP_K, RIG_VIEW_JITTER, s)
+                for s in range(seed, seed + 3)]
+             + [("the gated scene", BOP_K, BOP_JITTER, s) for s in range(seed + 1, seed + 6)])
+    for label, k, jitter, s in cases:
+        root = EVAL_DIR / f"variant_{label[:8].strip()}_{s}" / "lm"
+        scene = write_bop_scene(root, s, k=k, jitter=jitter)
+        rows, _ = evaluate_bop.main(["--checkpoint", str(pth), "--dataset-path", str(root),
+                                     "--scene-path", str(scene), "--object-id", "1",
+                                     "--num-input-views", "16", "--num-frames", "8",
+                                     "--batch-frames", "8", "--seed", str(s)])
+        say(f"  BOP, {label}, scene seed {s}: ADD-S within 0.1d on "
+            f"{sum(r['add_s_01d'] for r in rows)} of 8; add_s (mm) "
+            f"{json.dumps([round(r['add_s'], 2) for r in rows])}; translation (mm) "
+            f"{json.dumps([round(r['translation_dist'], 1) for r in rows])} on {smi}")
+
+
+def phase_fourteen(kernels, seed, held, smi, state, metropolis) -> dict:
+    """Phase 14 (a)-(d); ``metropolis`` is phase 6's metropolis_eval run.
+    Returns the launch counts by path."""
+    say("== phase 14/14: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
+        "the examples (demo family, learned weights)")
+    t14 = time.perf_counter()
+    EVAL_DIR.mkdir(parents=True, exist_ok=True)
+    pth = EVAL_DIR / "encoder_distill.pth"
+    write_demo_pth(state, pth)
+    bop = phase_bop(kernels, held, smi, pth, seed)
+    moped = phase_moped(kernels, held, smi, pth)
+    serving = phase_serving(kernels, held, smi)
+    if metropolis is not None:
+        say(f"    the records beside JAX's: metropolis_eval (phase 6) Metropolis "
+            f"{metropolis['metropolis']['hits']}/8, CEM {metropolis['cem_control']['hits']}/8 "
+            f"(JAX 8/8, 8/8); serving_accuracy estimate_batch "
+            f"{serving['estimate_batch']['hits']}/6, served {serving['served']['hits']}/6 "
+            f"(JAX 5/6, 6/6)")
+    examples = phase_examples(kernels, held, smi, pth)
+    say(f"   phase 14: BOP {json.dumps(bop)}, MOPED {json.dumps(moped)}, serving "
+        f"{json.dumps(serving)}, examples {json.dumps(examples)}; phase 14 took "
+        f"{time.perf_counter() - t14:.1f} s on {smi}")
+    return {"bop": bop["batch"]["counts"], "bop_single": bop["single"]["counts"],
+            "moped": moped["counts"], "serving_accuracy": serving["counts"],
+            "example": examples["pose"], "example_reconstruction": examples["reconstruction"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3732,6 +4178,9 @@ def main() -> None:
     parser.add_argument("--unseen-latent-rank", action="store_true",
                         help="phase 9 also runs the rig with the latent ranking term at 0.2 "
                              "(ungated)")
+    parser.add_argument("--eval-variants", action="store_true",
+                        help="build the kernels, run phase 14's BOP and MOPED legs under the "
+                             "settings they do not run (ungated), and exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is "
@@ -3752,7 +4201,7 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/13: device, kernel build, reference views")
+    say("== phase 1/14: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
@@ -3766,6 +4215,11 @@ def main() -> None:
                                  camera_dist=zoo.DEMO_CAMERA_DIST)
 
     demo = demo_model()
+    if args.eval_variants:
+        say("== phase 14 (a) and (b) under other settings, ungated")
+        phase_eval_variants(kernels, smi, state, args.seed)
+        say(f"   ({time.perf_counter() - t_start:.1f} s)")
+        return
     if args.accuracy_seeds is not None:
         table = {}
         for seed in args.accuracy_seeds:
@@ -3784,7 +4238,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/13: kernels against their plain versions")
+    say("== phase 2/14: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -3796,6 +4250,9 @@ def main() -> None:
     data_rows, data_held = phase_data_shapes(fused_sample, args.seed)
     trainer_rows, trainer_held = phase_trainer_shapes(fused_sample, args.seed)
     data_held |= held | option_held | {row["held"] for row in bwd_vol_rows.values()}
+    eval_held = {(*k, "float32") for k in data_held} | trainer_held
+    eval_rows, new_eval_held = phase_eval_shapes(fused_sample, args.seed, eval_held)
+    eval_held |= new_eval_held
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
@@ -3805,8 +4262,9 @@ def main() -> None:
     say(f"   K1 at phase 11's shapes: {json.dumps(option_rows)}")
     say(f"   K1 at phase 12's shapes: {json.dumps(data_rows)}")
     say(f"   K1 at phase 13's shapes: {json.dumps(trainer_rows)}")
+    say(f"   K1 at phase 6's metropolis_eval and phase 14's shapes: {json.dumps(eval_rows)}")
 
-    say(f"== phase 3/13: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/14: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -3817,12 +4275,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/13: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/14: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/13: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/14: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -3833,24 +4291,29 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/13: pose accuracy, demo family, learned weights, 8 oracle targets: "
-        "CEM, Metropolis, estimate_batch")
-    accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed)
+    say("== phase 6/14: pose accuracy, demo family, learned weights, 8 oracle targets: "
+        "estimate_batch (fp32) with the refinement step's gradient check; then "
+        "metropolis_eval (bf16): CEM and Metropolis")
+    t6 = time.perf_counter()
+    accuracy_counts, _ = phase_pose_accuracy(demo, kernels, args.seed, legs=())
     del demo
     torch.cuda.empty_cache()
+    metropolis = phase_metropolis_eval(kernels, eval_held, smi, args.seed)
+    say(f"   phase 6 took {time.perf_counter() - t6:.1f} s on {smi}")
 
-    say(f"== phase 7/13: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/14: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/13: the pose service at flagship width, two rounds of requests")
+    say("== phase 8/14: the pose service at flagship width, two rounds of requests (the "
+        "warm one o0's alone)")
     service_counts = phase_service(flagship, kernels, args.seed)
-    say(f"   service launches, warm round: {json.dumps(service_counts)}")
+    say(f"   service launches, warm round (o0 alone): {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/13: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/14: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -3858,7 +4321,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/13: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/14: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -3868,17 +4331,18 @@ def main() -> None:
     options = phase_eleven(kernels, args.seed, option_held, smi)
     data = phase_twelve(kernels, args.seed, data_held, smi)
     trainer = phase_thirteen(kernels, args.seed, trainer_held, smi)
+    evaluation = phase_fourteen(kernels, args.seed, eval_held, smi, state, metropolis)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
     paths = {"pose": pose_counts, "train_step": train_counts,
              "latent_cem": latent_cem, "latent_refine": latent_refine,
-             "metropolis_8_targets": accuracy_counts["Metropolis"],
+             "metropolis_eval": metropolis["counts"],
              "estimate_batch_8_targets": accuracy_counts["batch"],
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
-             "reconstruction": recon_counts, **options, **data, **trainer}
+             "reconstruction": recon_counts, **options, **data, **trainer, **evaluation}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

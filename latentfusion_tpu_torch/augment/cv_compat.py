@@ -222,3 +222,54 @@ def fill_ellipse(img: np.ndarray, center, axes, angle: float, value) -> np.ndarr
         if x0 <= x1:
             img[y, x0:x1 + 1] = value
     return img
+
+
+def _drop_single_channel(src: np.ndarray) -> np.ndarray:
+    return src[..., 0] if src.ndim == 3 and src.shape[2] == 1 else src
+
+
+def _resize_scale(src_size: int, dst_size: int) -> float:
+    return 1.0 / (dst_size / src_size)
+
+
+def resize_nearest(src: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(src, dsize, interpolation=INTER_NEAREST)``, ``dsize`` =
+    (width, height): destination pixel x reads source pixel
+    ``min(floor(x * src_w / dst_w), src_w - 1)``, likewise y. One channel
+    comes back (H, W), as from OpenCV."""
+    src = _drop_single_channel(src)
+    w, h = dsize
+    sh, sw = src.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w) * _resize_scale(sw, w)).astype(np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * _resize_scale(sh, h)).astype(np.int64), sh - 1)
+    return src[ys[:, None], xs[None, :]]
+
+
+def _linear_taps(src_size: int, dst_size: int):
+    """INTER_LINEAR's source indices and float32 weights of the two taps of
+    each destination index: centre-aligned, the fraction in float64,
+    clamped at both borders."""
+    f = (np.arange(dst_size) + 0.5) * _resize_scale(src_size, dst_size) - 0.5
+    s = np.floor(f).astype(np.int64)
+    f = f - s
+    low, high = s < 0, s >= src_size - 1
+    f[low | high] = 0
+    s[low] = 0
+    s[high] = src_size - 1
+    return s, np.minimum(s + 1, src_size - 1), (1 - f).astype(np.float32), f.astype(np.float32)
+
+
+def resize_linear(src: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(src, dsize)`` (INTER_LINEAR) of a float32 (H, W) or
+    (H, W, C) image, ``dsize`` = (width, height): rows, then columns,
+    each a float32 blend of two taps. One channel comes back (H, W), as
+    from OpenCV."""
+    w, h = dsize
+    src = _drop_single_channel(np.asarray(src, np.float32))
+    sh, sw = src.shape[:2]
+    x0, x1, ax, bx = _linear_taps(sw, w)
+    y0, y1, ay, by = _linear_taps(sh, h)
+    extra = (1,) * (src.ndim - 2)
+    rows = src[:, x0] * ax.reshape((1, w) + extra) + src[:, x1] * bx.reshape((1, w) + extra)
+    return (rows[y0] * ay.reshape((h, 1) + extra)
+            + rows[y1] * by.reshape((h, 1) + extra)).astype(np.float32)

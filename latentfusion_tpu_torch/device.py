@@ -16,3 +16,10 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def synchronize(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): host clocks
+    around asynchronous GPU calls time the calls only after this."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

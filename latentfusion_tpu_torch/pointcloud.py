@@ -1,13 +1,19 @@
 """Point clouds (counterpart of ``latentfusion_tpu/pointcloud.py``): PLY
 input and output, projection into cameras, the points inside masks, and a
-RANSAC plane segmentation. ``filter_outliers`` (scikit-learn's estimators)
-is not ported."""
+RANSAC plane segmentation, and ``filter_outliers``: scikit-learn's isolation
+forest rebuilt in numpy (its elliptic envelope is not ported: ROADMAP.md,
+Queue 1)."""
 from __future__ import annotations
+
+import logging
+import math
 
 import numpy as np
 import torch
 
 from . import three
+
+logger = logging.getLogger(__name__)
 
 
 def load_ply(path) -> torch.Tensor:
@@ -86,3 +92,97 @@ def segment_plane(points, distance_threshold=0.01, num_iterations=256, seed=0):
     below_plane = sign * (pts @ normal) <= 0
     inlier = np.abs(pts @ normal + d) < distance_threshold
     return torch.from_numpy(inlier | below_plane), np.asarray(best_plane)
+
+
+def average_path_length(n) -> np.ndarray:
+    """The mean path length of an unsuccessful search in a binary search
+    tree of ``n`` keys: isolation depth added for a leaf holding ``n``
+    samples (0 for n <= 1, 1 for n = 2)."""
+    n = np.asarray(n, dtype=np.float64)
+    out = np.where(n == 2, 1.0, 0.0)
+    big = n > 2
+    out[big] = 2.0 * (np.log(n[big] - 1.0) + np.euler_gamma) - 2.0 * (n[big] - 1.0) / n[big]
+    return out
+
+
+def _isolation_tree(x: np.ndarray, rng: np.random.Generator, max_depth: int):
+    """One isolation tree of the rows of ``x``: each node splits on a
+    feature drawn among those not constant in it, at a threshold uniform
+    between their least and greatest value (x <= threshold goes left), until
+    one sample is left or ``max_depth``. Arrays by node: feature (-1 at a
+    leaf), threshold, left, right, and at leaves depth + average path length
+    of the samples held."""
+    feature, threshold, left, right, value = [], [], [], [], []
+    stack = [(np.arange(len(x)), 0, None, None)]
+    while stack:
+        idx, depth, parent, side = stack.pop()
+        node = len(feature)
+        if parent is not None:
+            (left if side == 0 else right)[parent] = node
+        feature.append(-1)
+        threshold.append(0.0)
+        left.append(-1)
+        right.append(-1)
+        value.append(0.0)
+        sub = x[idx]
+        lo, hi = sub.min(axis=0), sub.max(axis=0)
+        candidates = np.flatnonzero(hi > lo)
+        if len(idx) <= 1 or depth >= max_depth or len(candidates) == 0:
+            value[node] = depth + float(average_path_length(len(idx)))
+            continue
+        f = int(rng.choice(candidates))
+        t = float(rng.uniform(lo[f], hi[f]))
+        feature[node], threshold[node] = f, t
+        go_left = sub[:, f] <= t
+        stack.append((idx[~go_left], depth + 1, node, 1))
+        stack.append((idx[go_left], depth + 1, node, 0))
+    return (np.asarray(feature), np.asarray(threshold), np.asarray(left), np.asarray(right),
+            np.asarray(value))
+
+
+def _path_lengths(tree, x: np.ndarray) -> np.ndarray:
+    feature, threshold, left, right, value = tree
+    node = np.zeros(len(x), np.int64)
+    while True:
+        inner = feature[node] >= 0
+        if not inner.any():
+            return value[node]
+        n = node[inner]
+        go_left = x[inner, feature[n]] <= threshold[n]
+        node[inner] = np.where(go_left, left[n], right[n])
+
+
+def isolation_forest_scores(points, rng: np.random.Generator, n_estimators: int = 100,
+                            max_samples: int = 256) -> np.ndarray:
+    """scikit-learn's ``IsolationForest(...).score_samples``: each of
+    ``n_estimators`` trees grown on ``min(max_samples, N)`` points drawn
+    without replacement to depth ceil(log2 of that); a point's score is
+    -2^(-mean path length / average path length of the subsample size),
+    lower the more isolated."""
+    x = np.asarray(points, dtype=np.float32)
+    n_sub = min(max_samples, len(x))
+    max_depth = int(math.ceil(math.log2(max(n_sub, 2))))
+    depths = np.zeros(len(x))
+    for _ in range(n_estimators):
+        tree = _isolation_tree(x[rng.choice(len(x), n_sub, replace=False)], rng, max_depth)
+        depths += _path_lengths(tree, x)
+    norm = float(average_path_length(n_sub))
+    return -np.power(2.0, -depths / n_estimators / norm)
+
+
+def filter_outliers(points, n_estimators=100, contamination=0.05,
+                    type="isolation_forest", *, rng: np.random.Generator):
+    """The inlier mask (N,) bool of ``IsolationForest(n_estimators,
+    contamination).fit_predict(points) > 0``: points whose score is below
+    the ``contamination`` quantile of all scores are outliers. The trees
+    draw from ``rng``."""
+    if type == "elliptic":
+        raise NotImplementedError(
+            "filter_outliers(type='elliptic') is not ported (ROADMAP.md, Queue 1)")
+    if type != "isolation_forest":
+        raise ValueError("Unknown outlier filter type")
+    pts = points.detach().cpu().numpy() if torch.is_tensor(points) else np.asarray(points)
+    scores = isolation_forest_scores(pts, rng, n_estimators)
+    keep = scores >= np.percentile(scores, 100.0 * contamination)
+    logger.info("filtered points: %d filtered, %d valid", int((~keep).sum()), int(keep.sum()))
+    return torch.from_numpy(keep)

@@ -82,3 +82,8 @@ def camera_metrics(camera_gt, camera_eval, points, scale_to_meters) -> Dict:
         metrics["proj2d"] = float(compute_point_proj2d(
             camera_gt.obj_to_image, camera_eval.obj_to_image, points))
     return metrics
+
+
+def concat_camera_metrics(metrics_list) -> dict:
+    """Metric dicts with the same keys -> {key: [value of each dict]}."""
+    return {key: [metrics[key] for metrics in metrics_list] for key in metrics_list[0]}

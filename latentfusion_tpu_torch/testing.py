@@ -133,6 +133,10 @@ class EllipsoidOracleModel:
         """The oracle has no latent: zeros (N, 1), like ``decode_latent``'s."""
         return torch.zeros(camera.length, 1, device=camera.device)
 
+    def build_latent_object(self, observation: Observation) -> torch.Tensor:
+        """The oracle has no latent: a (1, 1, 1, 1, 1, 1) zero placeholder."""
+        return torch.zeros(1, 1, 1, 1, 1, 1, device=self.device)
+
     def make_observation(self, camera: Camera, shaded: bool = False) -> Observation:
         """The ground-truth full-frame observation: shaded color, or the
         silhouette in all three channels."""

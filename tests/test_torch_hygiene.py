@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``latentfusion_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax, optax or the JAX package, nor a
 library the GPU machine lacks (imageio, PIL, cv2, sklearn, trimesh,
-tensorboard; the trainer's meters import TensorBoard only when it is
+matplotlib, tensorboard; the trainer's meters import TensorBoard only when it is
 there), no entry point runs on the CPU unless asked to, the host
 rasterizer and the JPEG decoder raise when they cannot be built, and the
 committed JPEG bank is what phase 13 of chip_smoke.py reads."""
@@ -20,7 +20,7 @@ from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "latentfusion_tpu", "imageio", "PIL", "cv2",
-             "sklearn", "trimesh", "tensorboard"}
+             "sklearn", "trimesh", "matplotlib", "tensorboard"}
 
 
 def _port_files():
@@ -83,7 +83,20 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/train_ibr.py",
             "latentfusion_tpu_torch/train_unseen_real.py",
             "latentfusion_tpu_torch/train_encoder_distill.py",
-            "latentfusion_tpu_torch/train_unseen_objects.py"} <= names
+            "latentfusion_tpu_torch/train_unseen_objects.py",
+            "latentfusion_tpu_torch/pose/format.py",
+            "latentfusion_tpu_torch/pose/bop.py",
+            "latentfusion_tpu_torch/pose/plotting.py",
+            "latentfusion_tpu_torch/evaluate_bop.py",
+            "latentfusion_tpu_torch/visualization.py",
+            "latentfusion_tpu_torch/examples/__init__.py",
+            "latentfusion_tpu_torch/examples/pose_estimation.py",
+            "latentfusion_tpu_torch/examples/reconstruction.py",
+            "latentfusion_tpu_torch/data/realsense.py",
+            "latentfusion_tpu_torch/data/colmap.py",
+            "latentfusion_tpu_torch/poserbpf_comparison.py",
+            "latentfusion_tpu_torch/metropolis_eval.py",
+            "latentfusion_tpu_torch/serving_accuracy.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -351,3 +364,25 @@ def test_committed_jpeg_bank():
         assert jpeg.read_jpeg(f).shape == (256, 256, 3)
     for f in bank.glob("backgrounds/*.jpg"):
         assert jpeg.read_jpeg(f).shape == (480, 640, 3)
+
+
+def test_evaluation_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The evaluation tools and the examples run on the GPU unless given
+    --device cpu."""
+    from latentfusion_tpu_torch import (evaluate_bop, metropolis_eval, poserbpf_comparison,
+                                        serving_accuracy)
+    from latentfusion_tpu_torch.examples import pose_estimation, reconstruction
+
+    for main, argv in ((evaluate_bop.main, ["--checkpoint", "m.pth", "--dataset-path", "lm",
+                                            "--scene-path", "s", "--object-id", "1"]),
+                       (poserbpf_comparison.main, ["--checkpoint", "m.pth",
+                                                   "--reference-scene", "r",
+                                                   "--eval-scene", "e"]),
+                       (metropolis_eval.main, ["--tiny", "--out", str(tmp_path)]),
+                       (serving_accuracy.main, ["--out", str(tmp_path)]),
+                       (pose_estimation.main, []),
+                       (reconstruction.main, ["--out", str(tmp_path / "g.png")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        metropolis_eval.load_eval_cameras()
