@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--unseen-latent-rank]
                           [--accuracy-seeds N [N ...] [--with-unseen]]
-                          [--eval-variants]
+                          [--eval-variants] [--parallel-only]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -43,7 +43,9 @@ line after it ends:
    decode), in their dtypes; and K1's kernels at the shapes and dtypes of
    phase 6's metropolis_eval run and phase 14's legs that no other row
    holds (EVAL_K1_SHAPES: the demo family's 8^3 latents, bf16 in
-   metropolis_eval and serving_accuracy's in-process half).
+   metropolis_eval and serving_accuracy's in-process half); and K2-fwd and
+   K2-bwd at the PGGAN generator's 6 shapes (phase 15 (e)), as the
+   refinement step's table.
 3. flagship: for each reference object (o0 and o1, 16 rendered views of
    480x640 RGB-D), build the latent object with the flagship
    family (weights drawn from --seed) and render it from 128 hypothesis
@@ -68,8 +70,9 @@ line after it ends:
    kernel, and K2-fwd's and K2-bwd's totals beside phase 2's sums. Then
    the latent path on the same target: configs/cross_entropy_latent.toml
    then configs/adam_latent.toml; the launch counters must show all five
-   kernels, two refinements from the same coarse cameras must end on the
-   same bits, one step's K1 calls must be shapes phase 2 held, and one
+   kernels, the refinement run again from the same coarse cameras for its
+   first LATENT_REPEAT_STEPS steps must give the same loss-history bits (a
+   cut for time: the whole 150 before), one step's K1 calls must be shapes phase 2 held, and one
    step must agree with the plain versions; ms per step, peak memory and
    a profile of one step.
 6. pose accuracy, demo family with the learned weights: the latent of 16
@@ -97,7 +100,9 @@ line after it ends:
    printed. Then ms per step, peak memory and a profile of one step, a run
    on a pool of batches
    whose held-out loss must fall, and ms per step with K1-bwd-vol's tiled
-   kernel and with the atomic kernel it replaced, in turns.
+   kernel and with the atomic kernel it replaced. (To make room for
+   phase 15 these two timings take one step of each after a warm-up, where
+   they took two steps a turn in four turns.)
 8. the pose service (latentfusion_tpu_torch/serve.py) at flagship width,
    weights from --seed: a round of ping, register o0 and o1 (views 0-14),
    estimates of view 15 of o0, of that frame twice and of o0 and o1
@@ -192,12 +197,14 @@ line after it ends:
    verbatim (bf16 ``--use-amp``, batch 8, 8 + 24 views, the GRU fuser, no
    discriminator, 5 workers) but for the dataset (phase 12's 32 lobe
    meshes), the texture and background banks (tests/data/jpeg_bank, the
-   JAX package's procedural JPEGs) and 2 epochs of 2 batches; then
+   JAX package's procedural JPEGs) and 1 epoch of 2 batches (cut from 2
+   epochs to make room for phase 15); then
    ``--resume`` from its epoch-latest checkpoint with ``--branch`` for one
-   epoch. Per iteration: the step's ms by CUDA events, ``time/data_load``,
+   epoch of 1 batch (2 batches before phase 15 came). Per iteration: the step's ms by CUDA events, ``time/data_load``,
    launches (K1-fwd, K1-bwd-vol, K2-fwd and K2-bwd must run, every K1 call
    in bf16 at a shape phase 2 held in bf16); peak memory; every loss
-   finite; the device's idle share over 3 loader-fed iterations; the loss
+   finite; the device's idle share over 2 loader-fed iterations (3
+   before phase 15 came); the loss
    of one loader batch in fp32 against bf16 (RECIPE_BF16_LOSS_TOL, the CPU
    test's bound; the same bits fail); the exported ``.pth`` through ``LatentFusionModel.from_checkpoint``,
    o0 built and 128 hypotheses rendered against the plain versions (as
@@ -205,7 +212,8 @@ line after it ends:
    (blend_flow, the published generator config, the discriminator; batch 8
    of 16 + 8 views), 2 iterations: ms, peak memory, launches, losses
    finite (K1-fwd, K2-fwd and K2-bwd must run). (c) ``train_unseen_real.main``
-   with 8 workers, two chunks of 20 steps (demo family, 6 + 8 views of
+   with 8 workers, two chunks of 10 steps (20 before phase 15 came; demo
+   family, 6 + 8 views of
    256x192, 32 meshes), then the encoder-distill and unseen-objects rigs
    (6 steps each, the first with one evaluation target): s per step, a
    finite loss, each npz read back by the evaluation half's loader.
@@ -231,6 +239,39 @@ line after it ends:
    in (c)), every K1 call at a shape and dtype phase 2 held.
    ``--eval-variants`` runs (a) and (b) alone under the settings they do
    not run, ungated (phase_eval_variants).
+
+15. the parallel layer (latentfusion_tpu_torch/parallel). The machine has
+   one card: 2 ranks, spawned as ``chip_smoke.py --rank-worker`` processes,
+   share it over gloo (a file:// rendezvous in _build/parallel), which
+   carries CUDA tensors for all_reduce and broadcast; FSDP, which needs
+   reduce_scatter and all_gather, runs on a one-rank NCCL mesh (FSDP_RANKS;
+   two FSDP ranks are tests/test_torch_parallel.py's). (a) The recipe's step
+   (RECIPE_FLAGS' architecture, weights N(0, 1) from --seed, bf16, Adam at
+   the tool's rate), 2 steps on 2 global batches of phase 7's (8 objects,
+   8 + 24 views) at 2 ranks, each on its slice, against one process on the
+   same batches: the losses and the parameters after the steps within 3x
+   the step's noise floor (every convolution's output times (1 + eps
+   N(0, 1)) in bf16, eps PARALLEL_FLOOR_EPS), the ranks' parameters the same
+   bits, K1-bwd-vol and K2-bwd launched on each rank. (b) The same steps
+   with the modules sharded by ``parallel.shard_fsdp`` on that one-rank
+   mesh, the same gate. (c) The demo ``.pth`` (phase 14's) on phase 6's
+   oracle: CEM (cross_entropy_quick), refinement (adam_quick, 3 steps),
+   Metropolis (32 chains, 20 iterations) and a two-object refinement
+   ``estimate_batch`` with the hypotheses sharded over the 2 ranks, against
+   one process (tests/test_parallel.py's tolerances: loss histories 1e-5,
+   poses 1e-4; CEM's top camera, or its ADD-S 0.1d outcome where ranking
+   ties move it), the ranks' estimates the same bits. (d) The flagship
+   Photographer's decode of 128 hypotheses with its convolutions' weights
+   cut over the 2 ranks (``parallel.shard_tp``) against the unsharded
+   decode: depth and mask within tests/test_parallel.py's 1e-5 of the
+   largest value, the ranks' outputs the same bits. (e) The PGGAN EncoderDecoder at
+   DEFAULT_BLOCK_CONFIG, forward and backward on 4 images of 256^2 through
+   K2 against the plain K2 path (NET_TOL), its K2 calls the rows phase 2
+   holds (generator_k2_calls); then ``poserbpf_comparison --video`` for 2
+   frames of the MOPED capture, its PNG frames read back at 240x320. s per
+   leg, ms per step and per decode beside the unsharded ones.
+   ``--parallel-only`` runs phase 15 alone (with phase 2's generator rows
+   and phase 14's ``.pth``).
 
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
@@ -279,6 +320,7 @@ NET_TOL = 5e-4  # a network's output on the kernels vs on the plain versions
 # at most relative to the largest value (phase 2). The gradient's noise
 # floor perturbs the activations at both sizes, rounded up.
 FLOOR_EPS = (1e-7, 4e-7)
+LATENT_REPEAT_STEPS = 25  # phase 5's latent refinement repeat (150 before)
 FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
 # The gradient of a parameter that does not reach the output (a conv bias
 # before instance norm), relative to the largest gradient: rounding noise.
@@ -1582,18 +1624,22 @@ def phase_latent_flagship(model, kernels, seed, held):
             and bool(torch.isfinite(best.translation).all())):
         fail("latent: the refinement's losses or poses are not finite")
 
+    # The repeat runs LATENT_REPEAT_STEPS of the steps (a cut for time):
+    # every step's loss reads the cameras of the step before, so the same
+    # history bits over them is the same trajectory.
+    fine.num_iters = LATENT_REPEAT_STEPS
     again, stats2 = fine.estimate(z, target, camera=cams[:fine.num_samples])
     torch.cuda.synchronize()
-    same_pose = (torch.equal(best.extrinsic, again.extrinsic)
-                 and torch.equal(best.viewport, again.viewport))
-    same_loss = torch.equal(history, stats2["loss_history"][:stats2["num_steps"]])
-    say(f"  latent refinement twice from the same coarse cameras: final poses the same "
-        f"bits {same_pose}, loss histories the same bits {same_loss} ({steps} and "
-        f"{stats2['num_steps']} steps)")
+    fine.num_iters = steps
+    same_loss = torch.equal(history[:LATENT_REPEAT_STEPS],
+                            stats2["loss_history"][:stats2["num_steps"]])
+    say(f"  latent refinement again from the same coarse cameras for "
+        f"{stats2['num_steps']} of its {steps} steps: loss histories the same bits "
+        f"{same_loss}")
     zcams = cams[:fine.num_samples].zoom(None, model.input_size, model.camera_dist)
     step = lambda: fine.loss_and_grads(z, target, zcams)
     networks = nn.ModuleList([model.sculptor, model.photographer])
-    if not (same_pose and same_loss):
+    if not same_loss:
         say(f"  ops flagged by torch.use_deterministic_algorithms(True, warn_only=True) "
             f"in one latent step: {json.dumps(nondeterministic_ops(step))}")
         say(f"  modules whose backward parts the bits from the same incoming "
@@ -2174,9 +2220,10 @@ def train_determinism(step, mods, batch, rotations) -> dict:
     deterministic selection, ``pose.estimation.deterministic_cudnn``) and
     twice with cuDNN's default selection patched in: for each, whether the
     two runs give the same bits and the first parameter (in module order)
-    whose gradient parts. Then ms per step (CUDA events, 2 steps after a
-    warm-up) under each, in turns (deterministic, default, default,
-    deterministic), and the cost of the deterministic selection."""
+    whose gradient parts. Then ms per step (CUDA events, 1 step after a
+    warm-up) under each (deterministic, then default; before phase 15 came,
+    two steps a turn in four turns), and the cost of the deterministic
+    selection."""
     from latentfusion_tpu_torch.pose import estimation
     from latentfusion_tpu_torch.train import step as tstep
 
@@ -2193,10 +2240,10 @@ def train_determinism(step, mods, batch, rotations) -> dict:
                       "first_parted": parted[0] if parted else None, "ms": []}
         del first, second
     frozen = tstep.init_train_state(mods, tstep.make_optimizer("sgd", 0.0))
-    for label in ("deterministic", "default", "default", "deterministic"):
+    for label in ("deterministic", "default"):
         with selections[label]():
             out[label]["ms"].append(event_ms(
-                lambda: step(frozen, batch, rotations=rotations), iters=2, warmup=1))
+                lambda: step(frozen, batch, rotations=rotations), iters=1, warmup=1))
     det, dflt = (sum(out[k]["ms"]) / len(out[k]["ms"]) for k in ("deterministic", "default"))
     out["cost"] = (det - dflt) / dflt
     say(f"  training step twice from the same state and batch, and ms per step, under "
@@ -2282,7 +2329,7 @@ def phase_train(kernels, seed):
         fail("training: the held-out loss did not fall")
     say(f"  one training step (global batch {TRAIN_BATCH}), device time by kernel:")
     profile_step(lambda: step(frozen, pool[0], rotations=upright))
-    bwd_vol_in_step(kernels[0], lambda: step(frozen, pool[0], rotations=upright))
+    bwd_vol_in_step(kernels[0], lambda: step(frozen, pool[0], rotations=upright), steps=1)
     del pool, holdout, mods, adam, frozen
     torch.cuda.empty_cache()
     return counts
@@ -2290,10 +2337,10 @@ def phase_train(kernels, seed):
 
 def bwd_vol_in_step(fused_sample, run_step, steps: int = 2) -> None:
     """ms per training step (CUDA events) with K1-bwd-vol's tiled kernel
-    and with the atomic kernel it replaced, taken in turns (tiled, atomic,
-    atomic, tiled), ``steps`` steps a turn after a warm-up step."""
+    and with the atomic kernel it replaced (tiled, then atomic), ``steps``
+    steps each after a warm-up step."""
     times = {"tiled": [], "atomic": []}
-    for kernel in ("tiled", "atomic", "atomic", "tiled"):
+    for kernel in ("tiled", "atomic"):
         with mock.patch.object(fused_sample, "bwd_vol_kernel", lambda _, k=kernel: k):
             run_step()
             for _ in range(steps):
@@ -2306,7 +2353,7 @@ def bwd_vol_in_step(fused_sample, run_step, steps: int = 2) -> None:
     mean = {k: sum(v) / len(v) for k, v in times.items()}
     say(f"  training step with K1-bwd-vol's tiled kernel {mean['tiled']:.1f} ms, with the "
         f"atomic kernel it replaced {mean['atomic']:.1f} ms (difference "
-        f"{mean['atomic'] - mean['tiled']:.1f} ms; turns tiled, atomic, atomic, tiled, "
+        f"{mean['atomic'] - mean['tiled']:.1f} ms; tiled then atomic, "
         f"{steps} steps each, CUDA events: {json.dumps({k: [round(t, 1) for t in v] for k, v in times.items()})})")
 
 def recon_inputs(device):
@@ -2511,7 +2558,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/14: the model options and the GAN training step: the training tool's "
+    say("== phase 11/15: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2831,7 +2878,7 @@ def phase_data_shapes(fused_sample, seed):
 
 def phase_twelve(kernels, seed, held, smi) -> dict:
     """Phase 12 (a) and (b); returns the launch counts by path."""
-    say("== phase 12/14: the data path: meshes, the rasterizer, augmentation and the loader "
+    say("== phase 12/15: the data path: meshes, the rasterizer, augmentation and the loader "
         "into the flagship training step; held-out objects of unseen_real.npz on "
         "rasterized views")
     t12 = time.perf_counter()
@@ -3392,11 +3439,13 @@ RECIPE_FLAGS = [
     "--generator-input-mask", "--no-discriminator", "--color-random-background",
     "--crop-random-background", "--mask-noise-p", "0.25", "--predict-depth",
     "--predict-mask", "--scale-mode", "nearest", "--use-amp", "--data-parallel"]
-RECIPE_EPOCHS, RECIPE_BATCHES = 2, 2
+# One epoch (two before phase 15 came: each epoch starts its loader's
+# workers anew, about 15 s).
+RECIPE_EPOCHS, RECIPE_BATCHES = 1, 2
 # The recipe's loss in fp32 against bf16 on one batch, relative: the CPU
 # test's bound (tests/test_torch_dtypes.py, BF16_LOSS_TOL).
 RECIPE_BF16_LOSS_TOL = 1e-2
-IDLE_ITERATIONS = 3
+IDLE_ITERATIONS = 2
 # The kernels train_ibr must launch: its reconstruction is frozen (no K1
 # backward), its generator and discriminator run K2 both ways.
 IBR_KERNELS = ("K1", "K2", "K2b")
@@ -3560,7 +3609,7 @@ def recipe_loss(step, mods, batch, rotations, dtype) -> float:
 
 def phase_recipe(kernels, seed, held, smi, meshes_dir) -> dict:
     """Phase 13 (a): train_reconstruct.main on tools/train.sh's flags (bf16),
-    2 epochs of 2 batches, then --resume --branch for one more; idle share
+    RECIPE_EPOCHS epoch of 2 batches, then --resume --branch for one more; idle share
     over 3 loader-fed iterations; the loss in fp32 against bf16; the .pth
     exported, loaded, built and rendered against the plain versions."""
     from latentfusion_tpu_torch import dtypes, train_reconstruct
@@ -3579,8 +3628,10 @@ def phase_recipe(kernels, seed, held, smi, meshes_dir) -> dict:
     torch.cuda.empty_cache()
     trainer, counts2, calls2, rows2, peak2, secs2 = run_tool(
         kernels, train_reconstruct, maker,
-        recipe_argv(meshes_dir, save_dir, 1, ("--resume", str(latest), "--branch")))
-    resumed = iteration_summary("train_reconstruct --resume --branch, one epoch", trainer,
+        recipe_argv(meshes_dir, save_dir, 1, ("--resume", str(latest), "--branch",
+                                              "--batches-per-epoch", "1")))
+    resumed = iteration_summary("train_reconstruct --resume --branch, one epoch of 1 batch",
+                                trainer,
                                 rows2, counts2, calls2, held, peak2, secs2, smi,
                                 TRAIN_STEP_KERNELS, amp=True)
     if not trainer.save_dir.name.startswith("shapenet,256-branch"):
@@ -3657,7 +3708,7 @@ def phase_ibr_train(kernels, held, smi, meshes_dir, pth) -> dict:
     return {"counts": counts, **out}
 
 
-RIG_CHUNK_STEPS, RIG_WORKERS, RIG_OBJECTS = 20, 8, 32
+RIG_CHUNK_STEPS, RIG_WORKERS, RIG_OBJECTS = 10, 8, 32
 DISTILL_RIG_STEPS = 6
 
 
@@ -3746,7 +3797,7 @@ def phase_train_rigs(kernels, smi) -> dict:
 
 def phase_thirteen(kernels, seed, held, smi) -> dict:
     """Phase 13 (a), (b) and (c); returns the launch counts by path."""
-    say("== phase 13/14: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
+    say("== phase 13/15: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
         "JPEG banks), --resume --branch, the .pth rendered; train_ibr on it; the rigs' "
         "training halves")
     t13 = time.perf_counter()
@@ -4141,7 +4192,7 @@ def phase_eval_variants(kernels, smi, state, seed) -> None:
 def phase_fourteen(kernels, seed, held, smi, state, metropolis) -> dict:
     """Phase 14 (a)-(d); ``metropolis`` is phase 6's metropolis_eval run.
     Returns the launch counts by path."""
-    say("== phase 14/14: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
+    say("== phase 14/15: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
         "the examples (demo family, learned weights)")
     t14 = time.perf_counter()
     EVAL_DIR.mkdir(parents=True, exist_ok=True)
@@ -4165,6 +4216,707 @@ def phase_fourteen(kernels, seed, held, smi, state, metropolis) -> dict:
             "example": examples["pose"], "example_reconstruction": examples["reconstruction"]}
 
 
+# ------------------------------------------------------------- phase 15
+PARALLEL_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "parallel"
+PARALLEL_RANKS = 2
+RANK_TIMEOUT_S = 420
+# Two ranks share the one card over gloo, which carries CUDA tensors for
+# all_reduce and broadcast (the DP step's gradient average, the hypothesis
+# and TP gathers), while NCCL refuses two ranks on one device. Gloo carries
+# no reduce_scatter or all_gather for CUDA tensors, which FSDP2 needs: the
+# FSDP leg runs fully_shard on a one-rank NCCL mesh (FSDP_RANKS), fixed
+# here, not chosen at run time; two ranks of FSDP are the CPU test's
+# (tests/test_torch_parallel.py, gloo).
+FSDP_RANKS = 1
+PARALLEL_STEPS = 2
+# The bf16 step's noise floor: every convolution's output times (1 + eps
+# N(0, 1)), rounded back to bf16, with eps the same multiples of bf16's
+# unit (2^-7) as FLOOR_EPS are of fp32's (2^-23).
+PARALLEL_FLOOR_EPS = tuple(e * 2.0 ** 16 for e in FLOOR_EPS)
+LOSS_TOL_15, POSE_TOL_15, DECODE_TOL_15 = 1e-5, 1e-4, 1e-5  # tests/test_parallel.py
+REFINE_ITERS_15, METROPOLIS_15 = 3, (32, 20)  # refinement steps; chains, iterations
+GENERATOR_BATCH, GENERATOR_SIZE = 4, 256
+VIDEO_FRAMES = 2
+# The video leg writes frames; tracking accuracy is phase 14's, so it
+# tracks at a small budget.
+VIDEO_COARSE = """type = "cross_entropy"
+[loss_weights]
+depth = 1.0
+[args]
+num_samples = 32
+num_iters = 2
+ranking_size = 8
+num_elites = 8
+num_gmm_components = 2
+learning_rate = 0.75
+"""
+VIDEO_FINE = """type = "gradient"
+[loss_weights]
+depth = 1.0
+ov_depth = 0.3
+[args]
+optimizer = "adam"
+num_iters = 5
+num_samples = 8
+ranking_size = 8
+learning_rate = 0.001
+converge_threshold = 1e-6
+converge_patience = 10
+"""
+
+
+def generator_k2_calls(batch=GENERATOR_BATCH, size=GENERATOR_SIZE) -> list:
+    """K2's (shape, calls) in one forward of the PGGAN EncoderDecoder at
+    ``DEFAULT_BLOCK_CONFIG`` on ``batch`` images of ``size``^2 (each block
+    resizes, then two conv + K2; the same calls again in the backward)."""
+    from latentfusion_tpu_torch.pggan.generator import DEFAULT_BLOCK_CONFIG
+
+    calls = {}
+    cfg = DEFAULT_BLOCK_CONFIG
+    for i, c in enumerate(cfg[1:]):  # encoder: halve, then c channels
+        shape = (batch, c, size >> (i + 1), size >> (i + 1))
+        calls[shape] = calls.get(shape, 0) + 2
+    out = list(reversed(cfg))[1:]
+    for i, c in enumerate(out):  # decoder: double from the code's size
+        side = size >> (len(cfg) - 2 - i)
+        shape = (batch, c, side, side)
+        calls[shape] = calls.get(shape, 0) + 2
+    return sorted(calls.items())
+
+
+def phase_generator_kernels(lrelu_pnorm, seed):
+    """Phase 2's rows at the generator's K2 shapes: K2-fwd and K2-bwd
+    against their plain versions, fp32 and bf16, twice for the same bits,
+    timed against their bounds."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    calls = generator_k2_calls()
+    fwd = k2_table(
+        "K2-fwd", "generator forward", calls,
+        lambda shape, dtype: (torch.randn(*shape, generator=g, device=dev).to(dtype),),
+        lambda x: lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8),
+        lambda x: lrelu_pnorm.lrelu_pixel_norm_plain(x, 0.2, 1e-8),
+        lambda x: 2 * x.numel() * 4 + x[:, 0].numel() * 4, 6.0)
+
+    def inputs(shape, dtype):
+        x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        gy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        return x, lrelu_pnorm.lrelu_pixel_norm_fwd(x, 0.2, 1e-8)[1], gy
+
+    bwd = k2_table(
+        "K2-bwd", "generator backward", calls, inputs,
+        lambda x, inv, gy: lrelu_pnorm.lrelu_pixel_norm_bwd(x, inv, gy, 0.2),
+        lambda x, inv, gy: lrelu_pnorm.lrelu_pixel_norm_bwd_plain(x, inv, gy, 0.2),
+        lambda x: 3 * x.numel() * 4 + x[:, 0].numel() * 4, 8.0)
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, "calls": calls}
+
+
+@contextlib.contextmanager
+def convs_perturbed_in_dtype(network, eps: float, seed: int):
+    """``testing.convs_perturbed`` that keeps each output's dtype: the
+    product is taken in fp32 and rounded back (in bf16 the step's
+    convolutions compute and return bf16)."""
+    from latentfusion_tpu_torch.modules.equalized import EqualizedConv
+
+    gens = {}
+
+    def hook(_module, _inputs, y):
+        g = gens.setdefault(y.device, torch.Generator(device=y.device).manual_seed(seed))
+        noise = torch.randn(y.shape, generator=g, device=y.device)
+        return (y.float() * (1 + eps * noise)).to(y.dtype)
+
+    handles = [m.register_forward_hook(hook) for m in network.modules()
+               if isinstance(m, EqualizedConv)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def recipe_setup(seed):
+    """tools/train.sh's architecture (RECIPE_FLAGS) with weights N(0, 1)
+    from ``seed`` on the card, the tool's step config and its learning
+    rate: (modules, config, lr, the initial weights, ``seed``)."""
+    from latentfusion_tpu_torch import train_reconstruct
+    from latentfusion_tpu_torch.train import args as A
+
+    args = train_reconstruct.get_args(["--save-dir", str(PARALLEL_DIR), *RECIPE_FLAGS])
+    sc, fu, ph, _, _ = train_reconstruct.build_models(
+        args, "cuda", torch.Generator(device="cuda").manual_seed(seed + 150))
+    config = {k: v for k, v in vars(args).items()
+              if isinstance(v, (int, float, str, bool, type(None)))}
+    config["camera_dist"] = A.auto_camera_dist(args)
+    mods = {"sculptor": sc, "fuser": fu, "photographer": ph}
+    initial = {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+               for name, m in mods.items()}
+    return mods, config, args.generator_lr, initial, seed
+
+
+def recipe_batches(seed) -> list:
+    """PARALLEL_STEPS global batches of the recipe (phase 7's oracle
+    batches, TRAIN_BATCH objects of 8 + 24 views), rendered on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 152)
+    return [train_batch(g) for _ in range(PARALLEL_STEPS)]
+
+
+def batch_sums(batch) -> list:
+    """Each leaf's sum in float64, in a fixed order (the batch's identity
+    across processes)."""
+    return [float(v.double().sum()) for grp in sorted(batch)
+            for _, v in sorted(batch[grp].items())]
+
+
+def recipe_steps(kernels, recipe, batches, mesh=None, fsdp=False, perturb=None):
+    """PARALLEL_STEPS steps of the recipe (bf16, Adam at the tool's rate,
+    the step's draws from one generator) from the initial weights of
+    ``recipe`` (``recipe_setup``'s, loaded afresh), one a batch; with
+    ``mesh`` each process takes its slice of each global batch (``fsdp``:
+    the modules sharded by ``parallel.shard_fsdp`` first, in place, so the
+    FSDP run comes last). Returns the losses, ms per step (CUDA events), the
+    launches and the parameters after the last step (sharded ones gathered
+    whole)."""
+    from torch import nn
+
+    from latentfusion_tpu_torch import dtypes, parallel
+    from latentfusion_tpu_torch.train import step as tstep
+
+    mods, config, lr, initial, seed = recipe
+    for name, m in mods.items():
+        m.load_state_dict(initial[name])
+    if fsdp:
+        parallel.shard_fsdp(mods, mesh)
+    state = tstep.init_train_state(mods, tstep.make_optimizer("adam", lr))
+    step = tstep.make_recon_train_step(mods["sculptor"], mods["fuser"], mods["photographer"],
+                                       None, config, mesh=mesh)
+    rng = torch.Generator(device="cuda").manual_seed(seed + 151)
+    local = [parallel.shard_batch(b, mesh) if mesh is not None else b for b in batches]
+    losses, ms = [], []
+    reset_counters(kernels)
+    context = (convs_perturbed_in_dtype(nn.ModuleList(mods.values()), *perturb)
+               if perturb else contextlib.nullcontext())
+    with dtypes.compute_dtype(torch.bfloat16), context:
+        for b in local:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _, scalars = step(state, b, rng)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(scalars["loss/generator/total"]))
+    counts = read_counters(kernels)
+    params = {f"{name}.{k}": v.detach().float().clone() for name, m in mods.items()
+              for k, v in parallel.full_state_dict(m).items()}
+    for m in mods.values():
+        m.zero_grad(set_to_none=True)
+    del state, step, local
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "counts": counts, "params": params}
+
+
+def params_rel(a: dict, b: dict) -> float:
+    """The largest difference of any parameter tensor, relative to the
+    larger of its largest magnitude in ``b`` and 1."""
+    return max(float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1.0)
+               for k in b)
+
+
+def bit_sums(params: dict) -> list:
+    """Position-weighted integer sums of each tensor's bits, on the card:
+    equal lists mean the same bits (up to a collision)."""
+    out = []
+    for k in sorted(params):
+        bits = params[k].cuda().contiguous().view(torch.int32).reshape(-1).long()
+        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append(int((bits * weights).sum()))
+    return out
+
+
+def estimator_inputs(model, seed) -> dict:
+    """Phase 6's oracle at the demo family: the latent of 16 shaded views
+    and two targets of 640x480 from ``seed``."""
+    from latentfusion_tpu_torch import testing, zoo
+    from latentfusion_tpu_torch.three import quaternion
+
+    dev = model.device
+    oracle = testing.EllipsoidOracleModel(zoo.DEMO_INPUT_SIZE, zoo.DEMO_CAMERA_DIST,
+                                          ORACLE_AXES, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 153)
+    ref_cams = zoo.random_view_cameras(16, g, zoo.DEMO_CAMERA_DIST, device=dev)
+    gts = [testing.make_camera(1, z=zoo.DEMO_CAMERA_DIST, f=615.0, width=640, height=480,
+                               quats=quaternion.random(1, g), device=dev) for _ in range(2)]
+    with torch.no_grad():
+        z = model.build_latent_object(oracle.make_observation(ref_cams, shaded=True))
+    return {"z": z, "targets": [oracle.make_observation(gt) for gt in gts], "gts": gts}
+
+
+def camera_leaves(cams) -> dict:
+    return {"translation": cams.translation.cpu(), "log_quaternion": cams.log_quaternion.cpu()}
+
+
+def run_estimators(model, inputs, mesh, seed) -> dict:
+    """CEM (cross_entropy_quick), refinement (adam_quick, REFINE_ITERS_15
+    steps, from its sunflower hypotheses), Metropolis (METROPOLIS_15) on
+    the first target and one two-object refinement ``estimate_batch``,
+    each from its own generator seeded from ``seed``; with ``mesh`` the
+    hypotheses are sharded over its ranks. Returns each one's cameras,
+    loss histories and seconds."""
+    from latentfusion_tpu_torch.pose import estimation
+
+    z, targets = inputs["z"], inputs["targets"]
+    out = {}
+
+    def gen(k):
+        return torch.Generator(device="cuda").manual_seed(seed + 160 + k)
+
+    cem = estimation.load_from_config(CONFIGS / "cross_entropy_quick.toml", model, mesh=mesh)
+    fine = estimation.load_from_config(CONFIGS / "adam_quick.toml", model, mesh=mesh,
+                                       num_iters=REFINE_ITERS_15, track_stats=True)
+    chains, iters = METROPOLIS_15
+    metropolis = estimation.MetropolisPoseEstimator(
+        model=model, num_samples=chains, num_iters=iters, loss_weights={"depth": 1.0},
+        ranking_size=8, mesh=mesh)
+    for label, fn in (
+            ("cem", lambda: (cem.estimate(z, targets[0], generator=gen(0)), None)),
+            ("refine", lambda: fine.estimate(z, targets[0], generator=gen(1))),
+            ("metropolis", lambda: (metropolis.estimate(z, targets[0], generator=gen(2)), None)),
+            ("batch", lambda: fine.estimate_batch(torch.cat([z, z]), targets,
+                                                  generator=gen(3)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cams, stats = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cams = cams if isinstance(cams, list) else [cams]
+        out[label] = {"cameras": [camera_leaves(c) for c in cams], "seconds": seconds,
+                      "loss_history": None if stats is None else stats["loss_history"].cpu()}
+    return out
+
+
+def tp_inputs(seed) -> dict:
+    """A flagship latent (N(0, 1) from ``seed``) and 128 hypothesis cameras
+    of reference object o0, as phase 3 renders them."""
+    from latentfusion_tpu_torch import zoo
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 154)
+    obs = reference_views(0, dev)
+    cams = hypothesis_cameras(obs, zoo.FLAGSHIP_INPUT_SIZE, CAMERA_DIST, g)
+    return {"z_obj": torch.randn(1, 1, 256, 16, 16, 16, generator=g, device=dev),
+            "cameras": cams}
+
+
+def tp_decode(seed, inputs, mesh=None) -> dict:
+    """The flagship Photographer (weights N(0, 1) from ``seed``) decodes
+    the 128 cameras; with ``mesh`` its convolutions are cut over the model
+    axis (``parallel.shard_tp``). Returns depth and mask, ms and the
+    convolutions cut."""
+    from latentfusion_tpu_torch import parallel, zoo
+    from latentfusion_tpu_torch.recon import models
+
+    photographer = zoo.flagship_photographer(generator=torch.Generator().manual_seed(seed + 155))
+    cut = parallel.shard_tp(photographer, mesh) if mesh is not None else 0
+    with torch.no_grad():
+        models.decode(photographer, inputs["z_obj"], inputs["cameras"][:2])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _, _ = models.decode(photographer, inputs["z_obj"], inputs["cameras"])
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"depth": y["depth"].cpu(), "mask": y["mask"].cpu(), "ms": ms, "cut": cut}
+    del photographer, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_worker(folder: Path, rank: int, world: int) -> None:
+    """One rank of phase 15: a gloo group by a file:// rendezvous in
+    ``folder``, the card shared with the other ranks; (a) the recipe's step
+    data-parallel, (c) the sharded estimators, (d) the TP decode. Writes
+    ``rank<r>.pt`` (rank 0 also the parameters and the decode)."""
+    import torch.distributed as dist
+
+    from latentfusion_tpu_torch import parallel
+    from latentfusion_tpu_torch.ops import fused_sample, lrelu_pnorm
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    kernels = (fused_sample, lrelu_pnorm)
+    t0 = time.perf_counter()
+    parallel.init_distributed("cuda", backend="gloo",
+                              init_method=f"file://{folder / 'rendezvous'}",
+                              rank=rank, world_size=world)
+    inputs = torch.load(folder / "inputs.pt", weights_only=False)
+    seed = inputs["seed"]
+    meshes = {axis: parallel.make_mesh(world, axis) for axis in
+              (parallel.DATA_AXIS, parallel.HYPOTHESIS_AXIS, parallel.MODEL_AXIS)}
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        # The main process computes its one-process references of (c)-(e)
+        # while the ranks start; the ranks' work waits for them.
+        while not (folder / "go").exists():
+            time.sleep(0.05)
+        out["wait_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        recipe = recipe_setup(seed)
+        batches = recipe_batches(seed)
+        out["batch_sums"] = [batch_sums(b) for b in batches]
+        out["dp_setup_s"] = time.perf_counter() - t
+        dp = recipe_steps(kernels, recipe, batches, meshes[parallel.DATA_AXIS])
+        del batches, recipe
+        out["dp"] = {k: dp[k] for k in ("losses", "ms", "counts")}
+        out["dp"]["bits"] = bit_sums(dp["params"])
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in dp["params"].items()}, folder / "dp_params.pt")
+        del dp
+        torch.cuda.empty_cache()
+        out["dp_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        model = LatentFusionModel.from_checkpoint(inputs["pth"])
+        reset_counters(kernels)
+        out["estimators"] = run_estimators(model, inputs, meshes[parallel.HYPOTHESIS_AXIS],
+                                           seed)
+        out["estimator_counts"] = read_counters(kernels)
+        del model
+        out["estimators_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        tp = tp_decode(seed, inputs, meshes[parallel.MODEL_AXIS])
+        out["tp"] = {"ms": tp["ms"], "cut": tp["cut"],
+                     "bits": bit_sums({"depth": tp["depth"], "mask": tp["mask"]})}
+        if rank == 0:
+            torch.save({"depth": tp["depth"], "mask": tp["mask"]}, folder / "tp.pt")
+        out["tp_s"] = time.perf_counter() - t
+    finally:
+        torch.save(out, folder / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def start_ranks(folder: Path, seed_inputs: dict) -> list:
+    """Start PARALLEL_RANKS processes of ``chip_smoke.py --rank-worker`` on
+    ``seed_inputs`` (each waits for ``folder/go``). Returns (process, log
+    file) pairs."""
+    for f in folder.glob("*"):
+        f.unlink()
+    torch.save(seed_inputs, folder / "inputs.pt")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        log = open(folder / f"log{r}.txt", "w")
+        ranks.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-worker", str(folder),
+             str(r), str(PARALLEL_RANKS)], env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return ranks
+
+
+def wait_ranks(folder: Path, ranks: list, t0: float) -> list:
+    """Wait for the ranks (RANK_TIMEOUT_S from ``t0``; any left then is
+    killed); each must exit 0. Returns their outputs."""
+    try:
+        for proc, _ in ranks:
+            proc.wait(timeout=max(1.0, t0 + RANK_TIMEOUT_S - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    codes = [proc.returncode for proc, _ in ranks]
+    if any(codes):
+        for r in range(PARALLEL_RANKS):
+            say(f"  rank {r} (exit {codes[r]}), last lines: "
+                + (folder / f"log{r}.txt").read_text()[-3000:])
+        fail(f"phase 15: a rank failed: exit codes {codes}")
+    return [torch.load(folder / f"rank{r}.pt", weights_only=False)
+            for r in range(PARALLEL_RANKS)]
+
+
+def same_tree(a, b) -> bool:
+    """The same structure and the same tensor bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return True
+
+
+def pose_close(a: dict, b: dict) -> float:
+    """The largest difference of translation and log-quaternion."""
+    return max(float((a[k] - b[k]).abs().max()) for k in ("translation", "log_quaternion"))
+
+
+def check_estimators(sharded: dict, single: dict, inputs: dict, smi) -> None:
+    """Phase 15 (c)'s gates: refinement and estimate_batch loss histories
+    within LOSS_TOL_15 and final poses within POSE_TOL_15 (tests/
+    test_parallel.py's); Metropolis' best pose within POSE_TOL_15; CEM the
+    same top camera within POSE_TOL_15, or, where ranking ties moved it,
+    the same ADD-S 0.1d outcome."""
+    from latentfusion_tpu_torch.camera import Camera
+    from latentfusion_tpu_torch.pose import metrics
+    from latentfusion_tpu_torch.three import orientation
+
+    dev = torch.device("cuda")
+    points = (orientation.evenly_distributed_points(512, device=dev)
+              * torch.tensor(ORACLE_AXES, device=dev))
+    gt = inputs["gts"][0]
+
+    def add_s(leaves):
+        cam = Camera(gt.intrinsic, None, gt.z_span, gt.viewport,
+                     log_quaternion=leaves["log_quaternion"][:1].to(dev),
+                     translation=leaves["translation"][:1].to(dev),
+                     width=gt.width, height=gt.height)
+        return metrics.camera_metrics(gt, cam, points, 1.0)["add_s"]
+
+    report = {}
+    for label in ("cem", "refine", "metropolis", "batch"):
+        s, o = sharded[label], single[label]
+        top = max(pose_close({k: a[k][:1] for k in a}, {k: b[k][:1] for k in b})
+                  for a, b in zip(s["cameras"], o["cameras"]))
+        hist = (None if o["loss_history"] is None else
+                float((s["loss_history"] - o["loss_history"]).abs().max()))
+        report[label] = {"top_pose_diff": top, "loss_history_diff": hist,
+                         "s_sharded": s["seconds"], "s_single": o["seconds"]}
+        ok = top <= POSE_TOL_15 and (hist is None or hist <= LOSS_TOL_15)
+        if label == "cem" and not ok:
+            hits = [add_s(x["cameras"][0]) < 0.1 * ORACLE_DIAMETER for x in (s, o)]
+            report[label]["add_s_hits"] = hits
+            ok = hits[0] == hits[1]
+        report[label]["ok"] = ok
+    say(f"  (c) sharded estimators at {PARALLEL_RANKS} ranks against one process (demo .pth): "
+        f"{json.dumps(report)} on {smi}")
+    bad = [k for k, v in report.items() if not v["ok"]]
+    if bad:
+        fail(f"phase 15 (c): the sharded estimators part from the unsharded ones: {bad}")
+
+
+def phase_generator_video(kernels, held_k2, smi, pth) -> dict:
+    """Phase 15 (e): the EncoderDecoder at DEFAULT_BLOCK_CONFIG, forward
+    and backward on GENERATOR_BATCH images of GENERATOR_SIZE^2 through K2,
+    against the plain K2 path (NET_TOL); every K2 call at a shape phase 2
+    held; then poserbpf_comparison --video for VIDEO_FRAMES frames of the
+    MOPED capture, its frames read back."""
+    from latentfusion_tpu_torch import modules, poserbpf_comparison, videos
+    from latentfusion_tpu_torch.pggan import EncoderDecoder
+
+    dev = torch.device("cuda")
+    net = EncoderDecoder(3, 3, generator=torch.Generator().manual_seed(156))
+    g = torch.Generator(device=dev).manual_seed(157)
+    x = torch.randn(GENERATOR_BATCH, 3, GENERATOR_SIZE, GENERATOR_SIZE, generator=g, device=dev)
+    style = torch.randn(GENERATOR_BATCH, 8, generator=g, device=dev)
+
+    def run(backend):
+        net.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        with modules.lrelu_pnorm_backend(backend):
+            y, _ = net(xi, style)
+            y.square().mean().backward()
+        torch.cuda.synchronize()
+        return y.detach(), xi.grad, {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    t0 = time.perf_counter()
+    reset_counters(kernels)
+    k2_shapes, _ = record_step(lambda: run("hopper"), keep_resizes=False)
+    counts = read_counters(kernels)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    y, gx, gp = run("hopper")
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    y_p, gx_p, gp_p = run("torch")
+    errs = {"output": rel_err(y, y_p), "input_grad": rel_err(gx, gx_p),
+            "param_grads": max(rel_err(gp[k], gp_p[k]) for k in gp)}
+    expected = {shape: (n, n) for shape, n in held_k2}
+    gen_s = time.perf_counter() - t0
+    say(f"  (e) EncoderDecoder (DEFAULT_BLOCK_CONFIG) on {GENERATOR_BATCH} x {GENERATOR_SIZE}^2: "
+        f"forward + backward {ms:.1f} ms (CUDA events), against the plain K2 path "
+        f"{json.dumps(errs)} (tol {NET_TOL}); launches {json.dumps(counts)} (one forward and "
+        f"backward); K2 "
+        f"calls by shape (fwd, bwd) {json.dumps({str(k): v for k, v in k2_shapes.items()})}; "
+        f"{gen_s:.1f} s on {smi}")
+    if not (counts["K2"] > 0 and counts["K2b"] > 0):
+        fail(f"phase 15 (e): the generator did not launch K2-fwd and K2-bwd: {counts}")
+    if k2_shapes != expected:
+        fail(f"phase 15 (e): the generator's K2 calls are not phase 2's rows: {k2_shapes}")
+    if not max(errs.values()) <= NET_TOL:
+        fail(f"phase 15 (e): the generator disagrees with the plain K2 path: {errs}")
+    del net, x, y, gx, gp, y_p, gx_p, gp_p
+    torch.cuda.empty_cache()
+
+    out_dir = EVAL_DIR / "moped_video"
+    coarse, fine = out_dir / "coarse.toml", out_dir / "fine.toml"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    coarse.write_text(VIDEO_COARSE)
+    fine.write_text(VIDEO_FINE)
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    rows, _ = poserbpf_comparison.main(
+        ["--checkpoint", str(pth), "--reference-scene", str(MOPED / "reference"),
+         "--eval-scene", str(MOPED / "evaluation"), "--coarse-config", str(coarse),
+         "--fine-config", str(fine), "--max-frames", str(VIDEO_FRAMES), "--video",
+         "--out", str(out_dir)])
+    video_s = time.perf_counter() - t0
+    frames = list(videos.read_video(out_dir / "tracking.mp4"))
+    shapes = sorted({f.shape for f in frames})
+    say(f"  (e) poserbpf_comparison --video, {len(rows)} frames in {video_s:.1f} s: PNG frames "
+        f"{sorted(p.name for p in (out_dir / 'tracking').iterdir())} read back at {shapes}; "
+        f"launches {json.dumps(read_counters(kernels))}")
+    if len(frames) != VIDEO_FRAMES or shapes != [(240, 320, 3)]:
+        fail(f"phase 15 (e): the video's frames are not {VIDEO_FRAMES} of 240x320x3: {shapes}")
+    return {"generator": counts, "generator_ms": ms, "errs": errs, "generator_s": gen_s,
+            "video_s": video_s}
+
+
+def phase_fifteen(kernels, seed, held_k2, smi, pth) -> dict:
+    """Phase 15 (a)-(e) (the docstring's). Returns the launch counts by
+    path."""
+    import torch.distributed as dist
+
+    from latentfusion_tpu_torch import parallel
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    say(f"== phase 15/15: the parallel layer: {PARALLEL_RANKS} ranks sharing the card over "
+        f"gloo (the data-parallel step, the sharded estimators, the TP decode), FSDP on "
+        f"{FSDP_RANKS} NCCL rank, the PGGAN generator and the video writer")
+    t15 = time.perf_counter()
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    model = LatentFusionModel.from_checkpoint(pth)
+    est_inputs = estimator_inputs(model, seed)
+    tp_in = tp_inputs(seed)
+    ranks = start_ranks(PARALLEL_DIR, {"seed": seed, "pth": str(pth), **est_inputs, **tp_in})
+    t_ranks = time.perf_counter()
+
+    # While the ranks start: the one-process references of (c) and (d), and (e).
+    t = time.perf_counter()
+    reset_counters(kernels)
+    single_est = run_estimators(model, est_inputs, None, seed)
+    est_counts = read_counters(kernels)
+    del model
+    ref = tp_decode(seed, tp_in)
+    gen = phase_generator_video(kernels, held_k2, smi, pth)
+    torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t
+    (PARALLEL_DIR / "go").touch()
+    outs = wait_ranks(PARALLEL_DIR, ranks, t_ranks)
+    ranks_s = time.perf_counter() - t_ranks
+    say(f"  {PARALLEL_RANKS} ranks in {ranks_s:.1f} s (the one-process references of (c) and "
+        f"(d) and leg (e) ran here, {refs_s:.1f} s, while the ranks started): ranks ready at "
+        f"{json.dumps([round(o['start_s'], 1) for o in outs])} s and released at "
+        f"{json.dumps([round(o['wait_s'], 1) for o in outs])} s of their own clocks; (a) "
+        f"{json.dumps([round(o['dp_s'], 1) for o in outs])} s (models and batches "
+        f"{json.dumps([round(o['dp_setup_s'], 1) for o in outs])} s), (c) "
+        f"{json.dumps([round(o['estimators_s'], 1) for o in outs])} s, (d) "
+        f"{json.dumps([round(o['tp_s'], 1) for o in outs])} s")
+
+    # (a) The data-parallel step against one process on the same global batches.
+    t = time.perf_counter()
+    recipe = recipe_setup(seed)
+    batches = recipe_batches(seed)
+    sums = [batch_sums(b) for b in batches]
+    if any(o["batch_sums"] != sums for o in outs):
+        fail("phase 15 (a): a rank rendered other global batches than this process")
+    single = recipe_steps(kernels, recipe, batches)
+    floors = []
+    for eps in PARALLEL_FLOOR_EPS:
+        pert = recipe_steps(kernels, recipe, batches, perturb=(eps, 0))
+        floors.append({"loss": max(abs(a - b) for a, b in zip(pert["losses"], single["losses"])),
+                       "params": params_rel(pert["params"], single["params"])})
+        del pert
+    floor = {k: max(f[k] for f in floors) for k in ("loss", "params")}
+    dp_params = torch.load(PARALLEL_DIR / "dp_params.pt", map_location="cuda")
+    dp = outs[0]["dp"]
+    diff = {"loss": max(abs(a - b) for a, b in zip(dp["losses"], single["losses"])),
+            "params": params_rel(dp_params, single["params"])}
+    same_bits = all(o["dp"]["bits"] == dp["bits"] for o in outs) and \
+        bit_sums(dp_params) == dp["bits"]
+    dp_s = time.perf_counter() - t
+    say(f"  (a) the recipe's step (bf16, global batch {TRAIN_BATCH}), {PARALLEL_STEPS} steps at "
+        f"{PARALLEL_RANKS} ranks: losses {json.dumps(dp['losses'])} against one process "
+        f"{json.dumps(single['losses'])}; ms per step by rank "
+        f"{json.dumps([[round(x, 1) for x in o['dp']['ms']] for o in outs])} against "
+        f"{json.dumps([round(x, 1) for x in single['ms']])}; |loss diff| {diff['loss']:.3g}, "
+        f"parameters' largest relative diff {diff['params']:.3g}; noise floor (eps "
+        f"{json.dumps(PARALLEL_FLOOR_EPS)}) {json.dumps(floor)}, gate {FLOOR_FACTOR}x; the "
+        f"ranks' parameters the same bits: {same_bits}; launches by rank "
+        f"{json.dumps([o['dp']['counts'] for o in outs])}; one process and the floor here "
+        f"{dp_s:.1f} s on {smi}")
+    if not (diff["loss"] <= FLOOR_FACTOR * floor["loss"]
+            and diff["params"] <= FLOOR_FACTOR * floor["params"]):
+        fail("phase 15 (a): the data-parallel step parts from the one-process step beyond "
+             "3x its noise floor")
+    if not same_bits:
+        fail("phase 15 (a): the ranks' parameters are not the same bits")
+    for o in outs:
+        if not (o["dp"]["counts"]["K1bv"] > 0 and o["dp"]["counts"]["K2b"] > 0):
+            fail(f"phase 15 (a): a rank did not launch K1-bwd-vol and K2-bwd: {o['dp']['counts']}")
+    del dp_params
+
+    # (b) FSDP on a one-rank NCCL mesh (FSDP_RANKS), the same steps, last:
+    # fully_shard changes the modules in place.
+    t = time.perf_counter()
+    parallel.init_distributed("cuda", init_method=f"file://{PARALLEL_DIR / 'fsdp_rendezvous'}",
+                              rank=0, world_size=FSDP_RANKS)
+    try:
+        fsdp = recipe_steps(kernels, recipe, batches, parallel.make_mesh_2d(1, FSDP_RANKS),
+                            fsdp=True)
+    finally:
+        dist.destroy_process_group()
+    del batches, recipe
+    torch.cuda.empty_cache()
+    fdiff = {"loss": max(abs(a - b) for a, b in zip(fsdp["losses"], single["losses"])),
+             "params": params_rel(fsdp["params"], single["params"])}
+    say(f"  (b) FSDP (fully_shard on a {FSDP_RANKS}-rank NCCL data x fsdp mesh: gloo carries no "
+        f"reduce_scatter or all_gather for CUDA tensors, NCCL no two ranks on one card), "
+        f"{PARALLEL_STEPS} steps: losses {json.dumps(fsdp['losses'])}, ms per step "
+        f"{json.dumps([round(x, 1) for x in fsdp['ms']])}; against one process |loss diff| "
+        f"{fdiff['loss']:.3g}, parameters {fdiff['params']:.3g} (gate {FLOOR_FACTOR}x the "
+        f"floor); launches {json.dumps(fsdp['counts'])}; {time.perf_counter() - t:.1f} s")
+    if not (fdiff["loss"] <= FLOOR_FACTOR * floor["loss"]
+            and fdiff["params"] <= FLOOR_FACTOR * floor["params"]):
+        fail("phase 15 (b): the FSDP step parts from the one-process step beyond 3x its "
+             "noise floor")
+    del single, fsdp
+
+    # (c) The sharded estimators against one process.
+    check_estimators(outs[0]["estimators"], single_est, est_inputs, smi)
+    if not all(same_tree(o["estimators"], outs[0]["estimators"]) for o in outs[1:]):
+        fail("phase 15 (c): the ranks returned other estimates")
+    say(f"    launches by rank {json.dumps([o['estimator_counts'] for o in outs])}, one process "
+        f"{json.dumps(est_counts)}")
+
+    # (d) The TP decode against the unsharded decode.
+    tp = torch.load(PARALLEL_DIR / "tp.pt")
+    errs = {k: float((tp[k] - ref[k]).abs().max()) / float(ref[k].abs().max())
+            for k in ("depth", "mask")}
+    tp_same = all(o["tp"]["bits"] == outs[0]["tp"]["bits"] for o in outs)
+    bound_met = all(errs[k] <= DECODE_TOL_15 for k in errs)
+    say(f"  (d) TP decode of {tp_in['cameras'].length} hypotheses (flagship Photographer, "
+        f"{outs[0]['tp']['cut']} convolutions cut over {PARALLEL_RANKS} ranks): ms by rank "
+        f"{json.dumps([round(o['tp']['ms'], 1) for o in outs])} against {ref['ms']:.1f} "
+        f"unsharded; error relative to the largest value {json.dumps(errs)} (tol "
+        f"{DECODE_TOL_15}, tests/test_parallel.py's); the ranks' outputs the same bits: "
+        f"{tp_same}")
+    if not (bound_met and tp_same and outs[0]["tp"]["cut"] > 0):
+        fail(f"phase 15 (d): the TP decode parts from the unsharded decode beyond "
+             f"{DECODE_TOL_15} of its largest value, or the ranks' outputs differ")
+    del ref, tp, tp_in, est_inputs
+    torch.cuda.empty_cache()
+
+    total = time.perf_counter() - t15
+    say(f"   phase 15 took {total:.1f} s on {smi} (ranks {ranks_s:.1f} s; after them (a) and "
+        f"its floor {dp_s:.1f} s here)")
+    return {"parallel_dp_rank0": outs[0]["dp"]["counts"],
+            "parallel_dp_rank1": outs[1]["dp"]["counts"],
+            "parallel_estimators_rank0": outs[0]["estimator_counts"],
+            "generator": gen["generator"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4181,11 +4933,21 @@ def main() -> None:
     parser.add_argument("--eval-variants", action="store_true",
                         help="build the kernels, run phase 14's BOP and MOPED legs under the "
                              "settings they do not run (ungated), and exit")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="build the kernels, hold K2 at the generator's shapes (phase 2's "
+                             "rows), write phase 14's .pth, run phase 15 and exit")
+    parser.add_argument("--rank-worker", nargs=3, metavar=("DIR", "RANK", "WORLD"),
+                        help="internal: one rank of phase 15 (spawned by the script)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is "
               "False", file=sys.stderr)
         sys.exit(2)
+
+    if args.rank_worker:
+        folder, rank, world = args.rank_worker
+        rank_worker(Path(folder), int(rank), int(world))
+        return
 
     from latentfusion_tpu_torch import zoo
     from latentfusion_tpu_torch.ops import _build, fused_sample, lrelu_pnorm
@@ -4201,7 +4963,7 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/14: device, kernel build, reference views")
+    say("== phase 1/15: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     check_reference_views(torch.device("cuda"))
@@ -4215,6 +4977,16 @@ def main() -> None:
                                  camera_dist=zoo.DEMO_CAMERA_DIST)
 
     demo = demo_model()
+    if args.parallel_only:
+        say("== phase 2/15, the generator's K2 rows only")
+        gen_k2 = phase_generator_kernels(lrelu_pnorm, args.seed)
+        EVAL_DIR.mkdir(parents=True, exist_ok=True)
+        write_demo_pth(state, EVAL_DIR / "encoder_distill.pth")
+        del demo
+        torch.cuda.empty_cache()
+        phase_fifteen(kernels, args.seed, gen_k2["calls"], smi, EVAL_DIR / "encoder_distill.pth")
+        say(f"   ({time.perf_counter() - t_start:.1f} s)")
+        return
     if args.eval_variants:
         say("== phase 14 (a) and (b) under other settings, ungated")
         phase_eval_variants(kernels, smi, state, args.seed)
@@ -4238,7 +5010,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/14: kernels against their plain versions")
+    say("== phase 2/15: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -4253,6 +5025,7 @@ def main() -> None:
     eval_held = {(*k, "float32") for k in data_held} | trainer_held
     eval_rows, new_eval_held = phase_eval_shapes(fused_sample, args.seed, eval_held)
     eval_held |= new_eval_held
+    gen_k2 = phase_generator_kernels(lrelu_pnorm, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
         f"{json.dumps([{m: r[m] for m in ('shape', 'kernel', 'ms', 'bound_ms', 'plain_ms', 'library_ms')} for r in k1_table + [k3['K1-fwd'], k3['K1-fwd gather']]])}")
@@ -4264,7 +5037,7 @@ def main() -> None:
     say(f"   K1 at phase 13's shapes: {json.dumps(trainer_rows)}")
     say(f"   K1 at phase 6's metropolis_eval and phase 14's shapes: {json.dumps(eval_rows)}")
 
-    say(f"== phase 3/14: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/15: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -4275,12 +5048,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/14: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/15: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/14: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/15: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -4291,7 +5064,7 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/14: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/15: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "estimate_batch (fp32) with the refinement step's gradient check; then "
         "metropolis_eval (bf16): CEM and Metropolis")
     t6 = time.perf_counter()
@@ -4301,19 +5074,19 @@ def main() -> None:
     metropolis = phase_metropolis_eval(kernels, eval_held, smi, args.seed)
     say(f"   phase 6 took {time.perf_counter() - t6:.1f} s on {smi}")
 
-    say(f"== phase 7/14: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/15: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/14: the pose service at flagship width, two rounds of requests (the "
+    say("== phase 8/15: the pose service at flagship width, two rounds of requests (the "
         "warm one o0's alone)")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round (o0 alone): {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/14: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/15: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -4321,7 +5094,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/14: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/15: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -4332,6 +5105,8 @@ def main() -> None:
     data = phase_twelve(kernels, args.seed, data_held, smi)
     trainer = phase_thirteen(kernels, args.seed, trainer_held, smi)
     evaluation = phase_fourteen(kernels, args.seed, eval_held, smi, state, metropolis)
+    parallel = phase_fifteen(kernels, args.seed, gen_k2["calls"], smi,
+                             EVAL_DIR / "encoder_distill.pth")
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -4342,7 +5117,8 @@ def main() -> None:
              "service_warm_round": service_counts,
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
-             "reconstruction": recon_counts, **options, **data, **trainer, **evaluation}
+             "reconstruction": recon_counts, **options, **data, **trainer, **evaluation,
+             **parallel}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

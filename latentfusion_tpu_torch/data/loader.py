@@ -96,14 +96,15 @@ class _Stream(torch.utils.data.IterableDataset):
     """The dataset's items in a worker (or inline), after the dataset's
     ``worker_init_fn`` and, if asked, the quantised transport."""
 
-    def __init__(self, dataset, transport):
+    def __init__(self, dataset, transport, worker_offset: int = 0):
         super().__init__()
         self.dataset = dataset
         self.transport = transport
+        self.worker_offset = worker_offset
 
     def __iter__(self):
         info = torch.utils.data.get_worker_info()
-        self.dataset.worker_init_fn(0 if info is None else info.id)
+        self.dataset.worker_init_fn(self.worker_offset + (0 if info is None else info.id))
         for item in self.dataset:
             yield encode_transport(item) if self.transport == "quantized" else item
 
@@ -123,11 +124,16 @@ class IterableLoader:
     (``device=None``: host numpy batches). On a CUDA device the batches are
     pinned and copied a batch ahead on a side stream; ``transport=
     "quantized"`` widens them there (``decode=False`` keeps host batches
-    quantised). Asking for CUDA without a GPU raises."""
+    quantised). Asking for CUDA without a GPU raises.
+
+    In a data-parallel run each rank's loader makes its own slice of every
+    global batch (``batch_size`` is the slice's size) from a stream of its
+    own: ``rank`` offsets the worker ids the dataset is seeded by (by
+    ``max(num_workers, 1)`` a rank), so no two ranks draw the same items."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 0,
                  prefetch_factor: int = 2, device="cuda", transport=None,
-                 decode: bool = True):
+                 decode: bool = True, rank: int = 0):
         if transport not in TRANSPORTS:
             raise ValueError(f"unknown transport {transport!r}")
         self.device = None if device is None else resolve_device(device)
@@ -137,6 +143,7 @@ class IterableLoader:
         self.prefetch_factor = prefetch_factor
         self.transport = transport
         self.decode = decode
+        self.worker_offset = rank * max(num_workers, 1)
         self._iterator = None
 
     def shutdown(self):
@@ -153,7 +160,8 @@ class IterableLoader:
         # workers here aborted at exit now and then ("terminate called
         # without an active exception") as the loader shut down.
         self._iterator = iter(torch.utils.data.DataLoader(
-            _Stream(self.dataset, self.transport), batch_size=None, num_workers=workers,
+            _Stream(self.dataset, self.transport, self.worker_offset), batch_size=None,
+            num_workers=workers,
             collate_fn=to_tensors, prefetch_factor=self.prefetch_factor if workers else None))
         while True:
             yield _stack(list(itertools.islice(self._iterator, self.batch_size)), pin)

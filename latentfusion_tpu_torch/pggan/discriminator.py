@@ -2,9 +2,12 @@
 ``latentfusion_tpu/pggan/discriminator.py``): a stack of 4x4 equalized
 convs (stride 2, the last stride 1) with instance norm, the minibatch's
 standard deviation as an extra channel of the last block, a 4x4 head; the
-multi-scale discriminator runs one at 1x, 0.5x and 0.25x."""
+multi-scale discriminator runs one at 1x, 0.5x and 0.25x. Inside
+``global_batch(mesh)`` the minibatch statistic is the global batch's, over
+every rank's slice (the data-parallel step)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -16,10 +19,36 @@ from ..modules.equalized import EqualizedConv
 from ..ops.interpolate import interpolate
 
 
+_BATCH_MESH = None
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Inside the block, ``minibatch_mean_variance`` reduces over the ranks
+    of ``mesh`` (None: this rank's batch alone), differentiably."""
+    global _BATCH_MESH
+    prev, _BATCH_MESH = _BATCH_MESH, mesh
+    try:
+        yield
+    finally:
+        _BATCH_MESH = prev
+
+
 def minibatch_mean_variance(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """The mean over positions of the batch's standard deviation."""
-    mean = x.mean(dim=0, keepdim=True)
-    return torch.sqrt(((x - mean) ** 2).mean(dim=0) + eps).mean()
+    """The mean over positions of the batch's standard deviation; inside
+    ``global_batch`` the batch is every rank's slice together."""
+    if _BATCH_MESH is None:
+        mean = x.mean(dim=0, keepdim=True)
+        return torch.sqrt(((x - mean) ** 2).mean(dim=0) + eps).mean()
+    from torch.distributed.nn.functional import all_reduce
+
+    from ..parallel import mesh_group, mesh_rank
+
+    group = mesh_group(_BATCH_MESH)
+    n = x.shape[0] * mesh_rank(_BATCH_MESH)[1]
+    mean = all_reduce(x.sum(dim=0, keepdim=True), group=group) / n
+    var = all_reduce(((x - mean) ** 2).sum(dim=0), group=group) / n
+    return torch.sqrt(var + eps).mean()
 
 
 def instance_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

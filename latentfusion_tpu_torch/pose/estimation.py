@@ -15,6 +15,16 @@ improvement of the best loss, for the convergence test). Random draws come
 from a ``torch.Generator``. A ``latent`` loss weight scores the cosine
 distance between the rendered 2D latent and the target's, autoencoded at
 the hypothesis cameras (``compute_latent_code``).
+
+``mesh=`` (a 1-D ``parallel.make_mesh(n, parallel.HYPOTHESIS_AXIS)``)
+shards the hypotheses over the ranks, as the JAX package's ``mesh=``
+does: every rank draws the full set from the same generator, scores its
+part of each object's block (``parallel.HypothesisShard``), and the losses
+and, in refinement, the camera gradients are gathered, so the GMM fits,
+the elites, the Metropolis accept step, the rankings and the optimizer
+steps are the same on every rank and every rank returns the unsharded
+estimate. Where the ranks do not divide an object's hypotheses, every
+rank scores them all, as the JAX package then leaves them unsharded.
 """
 from __future__ import annotations
 
@@ -245,12 +255,39 @@ class PoseEstimator:
     """Renders hypothesis cameras with ``model.decode_latent`` and scores
     them against a target observation."""
 
-    def __init__(self, *, model, ranking_size, loss_weights, loss_func=None):
+    def __init__(self, *, model, ranking_size, loss_weights, loss_func=None, mesh=None):
         self.model = model
         self.ranking_size = ranking_size
         self.loss_func = loss_func or default_pose_loss
         self.loss_weights = defaultdict(float)
         self.loss_weights.update(loss_weights)
+        self.mesh = mesh
+
+    def _shard(self, num_objects: int, n: int):
+        """This rank's part of ``num_objects`` blocks of ``n`` hypotheses,
+        or None without a mesh or where its ranks do not divide ``n``."""
+        if self.mesh is None:
+            return None
+        from ..parallel import HypothesisShard
+
+        if n % self.mesh.size():
+            logger.info("%d hypotheses do not split over %d ranks: each scores all",
+                        n, self.mesh.size())
+            return None
+        return HypothesisShard(self.mesh, num_objects, n)
+
+    def _score_all(self, shard, z_obj, target_obs, camera, z_target_latent=None,
+                   latent_at_camera=False):
+        """The weighted loss (N,) of every hypothesis. With a ``shard`` this
+        rank scores its part and the parts are gathered. ``latent_at_camera``
+        autoencodes the target's latent at each (scored) camera."""
+        if shard is not None:
+            target_obs, camera, z_target_latent = (
+                shard.take(x) for x in (target_obs, camera, z_target_latent))
+        if latent_at_camera:
+            z_target_latent = self._maybe_latent_code(target_obs, camera)
+        loss, _ = self._score_hypotheses(z_obj, target_obs, camera, z_target_latent)
+        return loss if shard is None else shard.gather(loss)
 
     @property
     def device(self):
@@ -393,6 +430,7 @@ class MetropolisPoseEstimator(PoseEstimator):
         device = camera.device
         error = torch.full((num_objects * n,), 100.0, device=device)
         ranking = init_ranking_batch(num_objects, self.ranking_size, device)
+        shard = self._shard(num_objects, n)
         for step in range(self.num_iters):
             temperature = metropolis_temperature(step, mean_z, self.num_iters)
             if draws is None:
@@ -405,9 +443,8 @@ class MetropolisPoseEstimator(PoseEstimator):
                 proposal = camera.replace(
                     translation=camera.translation + noise_t * self.translation_std,
                     log_quaternion=camera.log_quaternion + noise_q * self.quaternion_std)
-            loss, _ = self._score_hypotheses(
-                z_obj, target_rep, proposal,
-                self._maybe_latent_code(target_rep, proposal))
+            loss = self._score_all(shard, z_obj, target_rep, proposal,
+                                   latent_at_camera=True)
             accept = metropolis_accept(error, loss, temperature, uniforms)
             camera = camera.replace(
                 log_quaternion=torch.where(accept[:, None], proposal.log_quaternion,
@@ -557,6 +594,7 @@ class CrossEntropyPoseEstimator(PoseEstimator):
         prev_gmm = cur_gmm = self._fit(data, fit, draws)
         target_rep = repeat_frames(target, n)
         ranking = init_ranking_batch(num_objects, self.ranking_size, templates.device)
+        shard = self._shard(num_objects, n)
         for step in range(self.num_iters):
             sample_gmm = gmm_lib.blend(prev_gmm, cur_gmm, self.learning_rate)
             params = self._sample_poses(sample_gmm, num_draw, generator, draws)
@@ -567,7 +605,7 @@ class CrossEntropyPoseEstimator(PoseEstimator):
             z_target_latent = self._maybe_latent_code(target, cameras[::n])
             if z_target_latent is not None:
                 z_target_latent = z_target_latent.repeat_interleave(n, dim=0)
-            loss, _ = self._score_hypotheses(z_obj, target_rep, cameras, z_target_latent)
+            loss = self._score_all(shard, z_obj, target_rep, cameras, z_target_latent)
             loss = loss.reshape(num_objects, n)
             order = torch.argsort(loss, dim=1, stable=True)
             rank_of = torch.empty_like(order).scatter_(
@@ -668,10 +706,12 @@ class GradientPoseEstimator(PoseEstimator):
         return finish_batch(ranking, camera.uncrop(), len(camera) // num_objects), stats
 
     def loss_and_grads(self, z_obj, target_obs, camera: Camera, step: int = 0,
-                       num_objects: int = 1):
+                       num_objects: int = 1, views: Optional[int] = None):
         """The per-hypothesis ranking loss (N,) of the zoomed ``camera`` and
         the gradient of the optimized loss (summed over hypotheses, divided
-        by each object's hypothesis count, N / ``num_objects``) with respect
+        by each object's hypothesis count, ``views``, by default N /
+        ``num_objects``; a rank's part of the hypotheses passes the whole
+        count) with respect
         to its log_quaternion, translation and viewport. With a ``latent``
         weight the target's latent is autoencoded at ``camera`` inside the
         differentiated loss. The forward and the backward run on cuDNN's
@@ -688,9 +728,23 @@ class GradientPoseEstimator(PoseEstimator):
                                        z_target_latent=z_target_latent)
             optim_loss = sum(weigh_losses(loss_dict, self._weights_at(step)).values())
             rank_loss = sum(weigh_losses(loss_dict, self.loss_weights).values())
-            grads = torch.autograd.grad(optim_loss.sum() / (len(cam) // num_objects),
+            grads = torch.autograd.grad(optim_loss.sum() / (views or len(cam) // num_objects),
                                         list(leaves.values()))
         return rank_loss.detach(), dict(zip(leaves, grads))
+
+    def _sharded_loss_and_grads(self, shard, z_obj, target_obs, camera, step,
+                                num_objects, views):
+        """``loss_and_grads`` of every hypothesis; with a ``shard`` this rank
+        differentiates its part and the losses and gradients are gathered
+        (one collective: packed side by side)."""
+        if shard is None:
+            return self.loss_and_grads(z_obj, target_obs, camera, step, num_objects)
+        loss, grads = self.loss_and_grads(z_obj, shard.take(target_obs), shard.take(camera),
+                                          step, num_objects, views)
+        packed = shard.gather(torch.cat([loss[:, None], *grads.values()], dim=1))
+        widths = [1] + [g.shape[1] for g in grads.values()]
+        loss, *parts = torch.split(packed, widths, dim=1)
+        return loss[:, 0], dict(zip(grads, parts))
 
     def _update(self, grads, params, opt_state, count):
         """The optimizer's step direction per leaf (before the learning rate)."""
@@ -731,9 +785,10 @@ class GradientPoseEstimator(PoseEstimator):
         ranking = init_ranking_batch(num_objects, self.ranking_size, device)
         history = torch.full((self.num_iters, num_objects), math.nan, device=device)
         step = converge_count = 0
+        shard = self._shard(num_objects, views)
         while step < self.num_iters and converge_count < self.converge_patience:
-            rank_loss, grads = self.loss_and_grads(
-                z_obj, target_obs, camera.replace(**params), step, num_objects)
+            rank_loss, grads = self._sharded_loss_and_grads(
+                shard, z_obj, target_obs, camera.replace(**params), step, num_objects, views)
             # The ranking keeps the pose that was rendered, before the update.
             rank_lq, rank_t = params["log_quaternion"], params["translation"]
             updates = self._update(grads, params, opt_state, step + 1)

@@ -13,12 +13,15 @@ frame's pose repeated and perturbed (N(0, 0.005) on the translation,
 N(0, 0.02) on the log-quaternion, a ``torch.Generator`` seeded with the
 frame's index). Writes ``results.json``: per frame the rotation and
 translation distances to the capture's pose, the frame and its seconds.
-``--video`` is not ported (``videos.py``: ROADMAP.md, Queue 1). Runs on the
-GPU unless ``--device cpu``.
+``--video`` also writes each frame with the estimate's rendered mask
+overlaid on its red channel as ``tracking/000000.png``, ... (``videos.py``:
+the JAX tool's frames where it has no ffmpeg). Runs on the GPU unless
+``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import time
@@ -26,11 +29,13 @@ from pathlib import Path
 
 import torch
 
+from . import videos
 from .data.loader import collate
 from .data.realsense import RealsenseDataset
 from .device import resolve_device, synchronize
 from .observation import Observation
 from .pose import estimation, metrics
+from .pose.plotting import overlay_mask
 from .pose.utils import perturb_camera
 from .recon.inference import LatentFusionModel
 
@@ -57,11 +62,14 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def track(model, coarse, fine, z_obj, eval_ds, n_frames: int, first_draws=None):
+def track(model, coarse, fine, z_obj, eval_ds, n_frames: int, first_draws=None,
+          writer=None):
     """Frame 0 coarse then fine, every later frame refined from the last
     pose. ``first_draws`` (tests) gives frame 0's coarse search another
-    implementation's random stream. Returns the rows and, per frame, (the
-    capture's camera, the estimate's best camera)."""
+    implementation's random stream. With a ``videos.VideoWriter`` each
+    frame's color is written with the best estimate's rendered mask
+    overlaid. Returns the rows and, per frame, (the capture's camera, the
+    estimate's best camera)."""
     device = model.device
     rows, cameras, prev_camera = [], [], None
     for frame_idx in range(n_frames):
@@ -86,6 +94,10 @@ def track(model, coarse, fine, z_obj, eval_ds, n_frames: int, first_draws=None):
         cameras.append((target.camera, best[0]))
         logger.info("frame %d: rot=%.3f trans=%.4f (%.2fs)", frame_idx,
                     m["rotation_dist"], m["translation_dist"], elapsed)
+        if writer is not None:
+            with torch.no_grad():
+                mask = model.render_full(z_obj, best[0])["mask"][0, 0]
+            writer.write(overlay_mask(target.color[0].cpu().numpy(), mask.cpu().numpy()))
     return rows, cameras
 
 
@@ -94,9 +106,6 @@ def main(argv=None, first_draws=None):
     camera, the best estimate)."""
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
-    if args.video:
-        raise NotImplementedError("--video needs videos.py, which is not ported "
-                                  "(ROADMAP.md, Queue 1)")
     device = resolve_device(args.device)
     model = LatentFusionModel.from_checkpoint(args.checkpoint, device=device)
 
@@ -112,7 +121,13 @@ def main(argv=None, first_draws=None):
     n_frames = len(eval_ds)
     if args.max_frames > 0:
         n_frames = min(n_frames, args.max_frames)
-    results, cameras = track(model, coarse, fine, z_obj, eval_ds, n_frames, first_draws)
+    writer = None
+    if args.video:
+        args.out.mkdir(parents=True, exist_ok=True)
+        writer = videos.VideoWriter(args.out / "tracking.mp4", fps=15)
+    with writer or contextlib.nullcontext():
+        results, cameras = track(model, coarse, fine, z_obj, eval_ds, n_frames, first_draws,
+                                 writer)
 
     args.out.mkdir(parents=True, exist_ok=True)
     with open(args.out / "results.json", "w") as f:

@@ -34,13 +34,13 @@ def add_common_args(parser: argparse.ArgumentParser):
     g.add_argument("--gpu-id", type=int, default=0,
                    help="unused: the card is chosen by --device")
     g.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all local devices (one card: "
-                        "no effect)")
+                   help="under torchrun, shard each global batch over the ranks "
+                        "and average the gradients (one process: no effect)")
     g.add_argument("--fsdp", type=int, default=0, metavar="N",
-                   help="shard params + optimizer state N-ways (ZeRO-3 "
-                        "style) over the fsdp axis of a 2-D data x fsdp "
-                        "mesh; 0 disables. On one card any N > 1 exits, "
-                        "as N does not divide the device count.")
+                   help="under torchrun, shard params + optimizer state N-ways "
+                        "(ZeRO-3 style, FSDP2) over the fsdp axis of a 2-D "
+                        "data x fsdp mesh of the ranks; 0 disables; N must "
+                        "divide the number of ranks")
     g.add_argument("--use-amp", action="store_true",
                    help="bf16 conv compute (dtypes.py; no loss scaling)")
     g.add_argument("--remat", action="store_true",

@@ -11,6 +11,20 @@ and each step updates their parameters where they are (the JAX package
 returns new parameter trees instead). Each step runs on cuDNN's
 deterministic convolution algorithms (``pose.estimation.deterministic_cudnn``),
 so two steps from the same state and batch give the same bits.
+
+``mesh=`` (``parallel.make_mesh`` over the ``data`` axis, or the ``data x
+fsdp`` mesh of ``parallel.make_mesh_2d``) makes a step data-parallel: each
+rank takes its slice of the global batch (``parallel.shard_batch``, with
+the step's microbatch count), draws the global batch's noise from the same
+generator and keeps its slice, and after its microbatches the gradients
+are averaged over the ranks in one ``all_reduce`` (the one collective of
+the step, so ``--batch-groups`` microbatches need no ``no_sync``);
+parameters that ``parallel.shard_fsdp`` sharded are averaged by FSDP2
+instead. Every loss is a mean of per-item terms over equal local batches,
+so the average is the global batch's gradient; the reported losses are
+averaged too, and the discriminator's minibatch statistic is taken over
+the global batch (``pggan.global_batch``). Every rank ends the step with
+the same parameters.
 """
 from __future__ import annotations
 
@@ -24,6 +38,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import losses as L
+from .. import parallel
 from ..camera import Camera
 from ..device import resolve_device
 from ..pose import estimation
@@ -185,8 +200,41 @@ def _frozen(module: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
+def _average_gradients(state: TrainState, mesh) -> None:
+    """Average the gradients of the optimizers' parameters over the ranks of
+    ``mesh`` in one ``all_reduce`` (parameters FSDP2 shards are its own to
+    reduce and are left)."""
+    from torch.distributed.tensor import DTensor
+
+    params = [p for opt in (state.optimizer, state.d_optimizer) if opt is not None
+              for group in opt.param_groups for p in group["params"]
+              if p.grad is not None and not isinstance(p, DTensor)]
+    if not params:
+        return
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    torch.distributed.all_reduce(flat, group=parallel.mesh_group(mesh))
+    flat /= parallel.mesh_rank(mesh)[1]
+    for p, g in zip(params, torch.split(flat, [p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p.grad))
+
+
+def _mean_over(mesh, *dicts):
+    """Each dict of scalars averaged over the ranks of ``mesh`` (one
+    collective)."""
+    keys = [list(d) for d in dicts]
+    flat = torch.stack([torch.as_tensor(d[k]).float().reshape(())
+                        for d, ks in zip(dicts, keys) for k in ks])
+    flat = parallel.all_mean(flat, mesh)
+    out, i = [], 0
+    for d, ks in zip(dicts, keys):
+        out.append({k: flat[i + j] for j, k in enumerate(ks)})
+        i += len(ks)
+    return out
+
+
 def _accumulate(num_microbatches: int, loss_fn, state: TrainState,
-                discriminator: Optional[nn.Module] = None, d_loss_fn=None):
+                discriminator: Optional[nn.Module] = None, d_loss_fn=None,
+                mesh=None):
     """The one update rule of both steps: zero the gradients; for each
     microbatch ``i``, ``loss_fn(i) -> (loss dict, d_pack)`` and add the sum
     of its terms / M to the generator's gradients by backward (the
@@ -194,7 +242,8 @@ def _accumulate(num_microbatches: int, loss_fn, state: TrainState,
     ``d_loss_fn(d_pack)["total"]`` / M to its gradients; then step the
     optimizers. Both gradients are taken at the parameters from before the
     step. Forward and backward run on cuDNN's deterministic algorithms.
-    Returns ({"generator/<term>", "generator/total"[,
+    With ``mesh`` the gradients and the returned losses are averaged over
+    its ranks before the update. Returns ({"generator/<term>", "generator/total"[,
     "discriminator/<term>"]: summed / M}, the last microbatch's generator
     dict), detached."""
     m = num_microbatches
@@ -219,6 +268,9 @@ def _accumulate(num_microbatches: int, loss_fn, state: TrainState,
                 d_terms = d_loss_fn(d_pack)
                 (d_terms["total"] / m).backward()
                 add("discriminator", d_terms)
+    if mesh is not None:
+        _average_gradients(state, mesh)
+        summed, last = _mean_over(mesh, summed, last)
     state.optimizer.step()
     if discriminator is not None:
         state.d_optimizer.step()
@@ -227,14 +279,16 @@ def _accumulate(num_microbatches: int, loss_fn, state: TrainState,
 
 
 def make_train_step(sculptor, fuser, photographer, config: Optional[Dict] = None,
-                    num_microbatches: int = 1):
+                    num_microbatches: int = 1, mesh=None):
     """The plain generator step on a processed batch (see
     ``recon.utils.process_batch``): ``{'in': {image (B, V, 3, h, w), depth,
     mask, camera (B*V)}, 'out_gt': {...}}``.
 
     Returns ``step(state, batch) -> (state, loss, loss_dict)``; with
     microbatches the gradient and the loss are averaged over them and
-    ``loss_dict`` is the last one's, as in the JAX package."""
+    ``loss_dict`` is the last one's, as in the JAX package. With ``mesh``
+    the batch is this rank's slice of the global batch (see the module's
+    docstring)."""
     config = config or {}
 
     def loss_fn(batch):
@@ -247,7 +301,7 @@ def make_train_step(sculptor, fuser, photographer, config: Optional[Dict] = None
     def step(state: TrainState, batch):
         summed, aux = _accumulate(
             num_microbatches,
-            lambda i: loss_fn(_split(batch, num_microbatches, i)), state)
+            lambda i: loss_fn(_split(batch, num_microbatches, i)), state, mesh=mesh)
         return state, summed["generator/total"], aux
 
     return step
@@ -260,9 +314,19 @@ def _normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor
     return torch.randn(shape, generator=generator, device=generator.device).to(device)
 
 
+def _sharded_normal(shape, generator, device, shard) -> torch.Tensor:
+    """``_normal`` of the global batch, ``size`` times ``shape[0]`` along
+    dim 0 for ``shard`` = (rank, size), of which this rank keeps its slice."""
+    rank, size = shard
+    if size == 1:
+        return _normal(shape, generator, device)
+    full = _normal((shape[0] * size, *shape[1:]), generator, device)
+    return full[rank * shape[0]:(rank + 1) * shape[0]]
+
+
 def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
                           config: Optional[Dict] = None,
-                          num_microbatches: int = 1):
+                          num_microbatches: int = 1, mesh=None):
     """One iteration of the training tool on a raw batch: ``process_batch``
     (random orientation) -> input masking [-> the input depth with N(0,
     ``depth_noise_std``) noise, clipped to [-1, 1], when
@@ -292,8 +356,12 @@ def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
     ``_depth`` and ``_mask`` flags name, in that order; with none set the
     JAX step concatenates an empty list and fails, and this one raises
     ``ValueError`` when it is made. Its calls run inside a
-    ``DISCRIMINATOR_RANGE`` profiler range."""
+    ``DISCRIMINATOR_RANGE`` profiler range. With ``mesh`` the raw batch is
+    this rank's slice of the global batch (see the module's docstring)."""
+    from ..pggan import global_batch
+
     config = dict(config or {})
+    shard = (0, 1) if mesh is None else parallel.mesh_rank(mesh)
     d_inputs = [k for k in ("color", "depth", "mask")
                 if config.get(f"discriminator_input_{k}", False)]
     if discriminator is not None and not d_inputs:
@@ -345,7 +413,8 @@ def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
         if generator_input_depth:
             if not depth_random_background or crop_random_background:
                 depth_in = mask_normalized_depth(depth_in, mask_in)
-            noise = _normal(depth_in.shape, generator, depth_in.device) * depth_noise_std
+            noise = depth_noise_std * _sharded_normal(depth_in.shape, generator,
+                                                      depth_in.device, shard)
             depth_in = (depth_in + noise).clamp(-1, 1)
         else:
             depth_in = None
@@ -378,9 +447,9 @@ def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
                                 for k in d_inputs], dim=1)
             mask_real = bv2b(recon["mask"])
             scale = input_noise_weight * noise_std
-            real_noise = scale * _normal(y_real.shape, generator, y_real.device)
-            fake_noise = scale * _normal(y_fake.shape, generator, y_fake.device)
-            with record_function(DISCRIMINATOR_RANGE):
+            real_noise = scale * _sharded_normal(y_real.shape, generator, y_real.device, shard)
+            fake_noise = scale * _sharded_normal(y_fake.shape, generator, y_fake.device, shard)
+            with record_function(DISCRIMINATOR_RANGE), global_batch(mesh):
                 loss_dict["gan"] = gan_weight * L.multiscale_lsgan_loss(
                     discriminator(y_fake + fake_noise, mask_real), 1)
             d_pack = (y_fake.detach(), y_real, mask_real, real_noise, fake_noise)
@@ -388,7 +457,7 @@ def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
 
     def d_losses(d_pack):
         y_fake, y_real, mask_real, real_noise, fake_noise = d_pack
-        with record_function(DISCRIMINATOR_RANGE):
+        with record_function(DISCRIMINATOR_RANGE), global_batch(mesh):
             real = L.multiscale_lsgan_loss(discriminator(y_real + real_noise, mask_real), 1)
             fake = L.multiscale_lsgan_loss(discriminator(y_fake + fake_noise, mask_real), 0)
         return {"real": real, "fake": fake, "total": real + fake}
@@ -400,7 +469,7 @@ def make_recon_train_step(sculptor, fuser, photographer, discriminator=None,
             m, lambda i: g_losses(_split(batch, m, i), generator,
                                   None if rotations is None else rotations[i],
                                   input_noise_weight),
-            state, discriminator, d_losses)
+            state, discriminator, d_losses, mesh=mesh)
         return state, {f"loss/{k}": v for k, v in summed.items()}
 
     return step

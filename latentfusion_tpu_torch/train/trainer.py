@@ -10,6 +10,11 @@ package resumes from the other's. ``export_torch_checkpoint`` writes the
 reference ``.pth`` that both packages' ``LatentFusionModel.from_checkpoint``
 load. The step's randomness comes from ``self.rng``, a ``torch.Generator``
 on the training device seeded by ``seed``.
+
+In a run over several ranks (``rank``) every rank runs the loop and takes
+part in each checkpoint (gathering sharded parameters is a collective), and
+rank 0 alone writes params.json, the checkpoints, the ``.pth`` and the
+TensorBoard logs.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..recon import checkpoint as ckpt
 from ..utils import MyEncoder
 from .logging import MetricLogger
@@ -55,7 +61,7 @@ def load_checkpoint(path) -> Dict[str, Any]:
 def module_params(name: str, module: nn.Module) -> Dict[str, Any]:
     """``module``'s parameters as the JAX tree of module ``name``
     (``{"params": {...}}``; ``{}`` for a module without parameters)."""
-    state = {f"{name}.{k}": v for k, v in module.state_dict().items()}
+    state = {f"{name}.{k}": v for k, v in parallel.full_state_dict(module).items()}
     return ckpt.nest_params(ckpt.to_jax_params(state)).get(name, {})
 
 
@@ -72,7 +78,7 @@ class Trainer:
     def __init__(self, *, name: str, save_dir, loader, batches_per_epoch: int,
                  batch_groups: int = 1, num_epochs: int = 10000,
                  save_interval: int = 10, logger_intervals: Optional[dict] = None,
-                 **kwargs):
+                 rank: int = 0, **kwargs):
         self.name = name
         self.save_dir = Path(save_dir) / name
         self.loader = loader
@@ -81,9 +87,11 @@ class Trainer:
         self.num_epochs = num_epochs
         self.save_interval = save_interval
         self.kwargs = kwargs
+        self.rank = rank
         self.epoch = 0
         self.best_metrics: Dict[str, float] = {}
-        self.plotter = MetricLogger(self.save_dir / "tb", **(logger_intervals or {}))
+        self.plotter = MetricLogger(self.save_dir / "tb" if rank == 0 else None,
+                                    **(logger_intervals or {}))
         self._time_mark = time.time()
 
     # Subclass hooks -------------------------------------------------------
@@ -101,6 +109,8 @@ class Trainer:
         return delta
 
     def save_params_json(self):
+        if self.rank != 0:
+            return
         self.save_dir.mkdir(parents=True, exist_ok=True)
         with open(self.save_dir / "params.json", "w") as f:
             json.dump({"name": self.name, **{
@@ -110,6 +120,8 @@ class Trainer:
 
     def save(self, tag: str):
         payload = self.create_checkpoint()
+        if self.rank != 0:
+            return
         payload.update({"name": self.name, "epoch": self.epoch})
         save_checkpoint(self.save_dir / f"ckpt-{tag}.npz.pkl", payload)
         logger.info("saved checkpoint %s", tag)
@@ -227,15 +239,16 @@ class ReconTrainer(Trainer):
 
     def export_torch_checkpoint(self, path):
         """Write the reference-format ``.pth``: each module's ``args`` and
-        ``state_dict`` (on the CPU)."""
+        ``state_dict`` (on the CPU). Every rank calls it; rank 0 writes."""
         payload = self.create_checkpoint()
         payload.update({"name": self.name, "epoch": self.epoch, "meter_hists": {}})
         for name, module in self._modules().items():
             entry = payload["modules"][name]
             entry.pop("params")
             entry["state_dict"] = {k: v.detach().cpu().clone()
-                                   for k, v in module.state_dict().items()}
-        torch.save(payload, path)
+                                   for k, v in parallel.full_state_dict(module).items()}
+        if self.rank == 0:
+            torch.save(payload, path)
 
 
 class IBRTrainer(ReconTrainer):

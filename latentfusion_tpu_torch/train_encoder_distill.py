@@ -11,7 +11,7 @@ full-frame depth terms. Adam (0.9, 0.99) on a cosine decay to 1 % over
 ``--steps``.
 
     python -m latentfusion_tpu_torch.train_encoder_distill --steps 20000 \\
-        --out artifacts/encoder_distill [--snapshot-steps 5000,10000] [--device cpu]
+        --out DIR [--snapshot-steps 5000,10000] [--device cpu]
 
 Writes ``encoder_distill.npz`` and ``encoder_distill_keys.json`` (the JAX
 tool's leaf order and paths: its ``--skip-train`` and this package's
@@ -49,7 +49,9 @@ def get_args(argv=None):
     parser.add_argument("--views-out", type=int, default=8,
                         help="fresh supervision cameras per step")
     parser.add_argument("--lr", type=float, default=1e-3)
-    parser.add_argument("--out", type=Path, default=Path("artifacts/encoder_distill"))
+    parser.add_argument("--out", type=Path, required=True,
+                        help="output directory (no default, so that a run cannot "
+                             "overwrite the committed artifacts/encoder_distill)")
     parser.add_argument("--eval-targets", type=int, default=8)
     parser.add_argument("--eval-views", type=int, default=16,
                         help="reference views for the eval latent build")

@@ -14,11 +14,29 @@
 checkpoints and the JAX trainer's ``ckpt-*.npz.pkl`` alike (the parameters
 only, as the JAX tool does); ``--branch`` forks the run under a new name.
 ``--device cpu`` trains on the CPU; the default is the card.
+
+Over several cards of one host, under torchrun:
+
+    torchrun --nproc-per-node N -m latentfusion_tpu_torch.train_reconstruct \
+        ... --batch-size B --data-parallel        # B / N objects a rank
+    torchrun --nproc-per-node N -m latentfusion_tpu_torch.train_reconstruct \
+        ... --batch-size B --fsdp F               # params sharded F-ways
+
+``--data-parallel`` takes the process group from torchrun's environment
+(NCCL on the cards, gloo with ``--device cpu``); each rank renders its
+slice of every global batch and the step averages the gradients, so a step
+is the global batch's. ``--fsdp F`` shards the parameters and Adam's state
+with FSDP2 on a ``(N / F) x F`` ``data x fsdp`` mesh (the discriminator,
+when there is one, stays whole on every rank) and takes the same step.
+Every rank builds the same weights from ``--seed`` (or loads the same
+``--resume``), and rank 0 alone writes the checkpoints, the ``.pth`` and
+the logs. Run as one process, ``--data-parallel`` changes nothing.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 
 from . import dtypes
@@ -145,6 +163,38 @@ def build_models(args, device="cuda", generator=None):
     return sculptor, fuser, photographer, discriminator, margs
 
 
+def process_group(args, device):
+    """The ranks a run trains on: (rank, world, device, mesh). Under
+    torchrun ``--data-parallel`` and ``--fsdp`` join its group. One process
+    trains unsharded, as before: ``--data-parallel`` and ``--fsdp 1``
+    change nothing there, and a larger ``--fsdp`` asks for torchrun."""
+    import torch
+
+    from . import parallel
+
+    under_torchrun = "RANK" in os.environ or torch.distributed.is_initialized()
+    if not under_torchrun:
+        if args.fsdp and args.fsdp > 1:
+            raise SystemExit(f"--fsdp {args.fsdp} does not divide 1 devices (one process; "
+                             "launch with torchrun)")
+        if args.data_parallel or args.fsdp:
+            logger.info("one process: nothing to shard")
+        return 0, 1, device, None
+    if not (args.fsdp or args.data_parallel):
+        return 0, 1, device, None
+    rank, world, device = parallel.init_distributed(device)
+    if args.fsdp and world % args.fsdp:
+        raise SystemExit(f"--fsdp {args.fsdp} does not divide {world} devices (one a rank)")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} does not split over {world} ranks")
+    mesh = (parallel.make_mesh_2d(world // args.fsdp, args.fsdp, device) if args.fsdp
+            else parallel.make_mesh(world, device=device))
+    logger.info("rank %d of %d: %s, %d of the global batch of %d", rank, world,
+                f"FSDP over {args.fsdp}" if args.fsdp else "data parallel",
+                args.batch_size // world, args.batch_size)
+    return rank, world, device, mesh
+
+
 @dtypes.compute_dtype()
 def main(argv=None):
     """Train as the arguments say; returns the ``ReconTrainer``."""
@@ -152,12 +202,9 @@ def main(argv=None):
 
     import torch
 
-    from .data.loader import IterableLoader
     from .device import resolve_device
-    from .train import args as A
-    from .train.step import init_gan_train_state, make_optimizer, make_recon_train_step
-    from .train.trainer import ReconTrainer, load_checkpoint, load_module_params
-    from .utils import ExponentialScheduler, piecewise_constant_schedule, seed_all
+    from .train.trainer import load_checkpoint
+    from .utils import seed_all
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -175,11 +222,18 @@ def main(argv=None):
     if args.use_amp:
         dtypes.set_compute_dtype("bfloat16")
 
-    if args.fsdp and args.fsdp > 1:
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        if n_dev % args.fsdp:
-            raise SystemExit(f"--fsdp {args.fsdp} does not divide {n_dev} devices")
-        raise SystemExit("--fsdp: sharding over cards is not ported")
+    rank, world, device, mesh = process_group(args, device)
+    return _train(args, device, rank, world, mesh, resume_payload)
+
+
+def _train(args, device, rank, world, mesh, resume_payload):
+    import torch
+
+    from .data.loader import IterableLoader
+    from .train import args as A
+    from .train.step import init_gan_train_state, make_optimizer, make_recon_train_step
+    from .train.trainer import ReconTrainer, load_module_params
+    from .utils import ExponentialScheduler, piecewise_constant_schedule
 
     camera_dist = A.auto_camera_dist(args)
     logger.info("camera_dist=%.4f", camera_dist)
@@ -196,23 +250,28 @@ def main(argv=None):
     d_optimizer = (make_optimizer("adam", args.discriminator_lr)
                    if discriminator is not None else None)
     modules = {"sculptor": sculptor, "fuser": fuser, "photographer": photographer}
-    state = init_gan_train_state(modules, g_optimizer, discriminator, d_optimizer, device)
-
     if resume_payload is not None:
         for name, module in modules.items():
             load_module_params(module, resume_payload["modules"][name]["params"])
         logger.info("resumed from %s (epoch %s)", args.resume, resume_payload.get("epoch"))
+    if args.fsdp:
+        from . import parallel
+
+        # The discriminator stays whole on every rank, its gradient averaged
+        # by the step: the generator's loss freezes its parameters
+        # (requires_grad off), which FSDP2's unsharded copies do not follow.
+        parallel.shard_fsdp(modules, mesh)
+    state = init_gan_train_state(modules, g_optimizer, discriminator, d_optimizer, device)
 
     config = {k: v for k, v in vars(args).items()
               if isinstance(v, (int, float, str, bool, type(None)))}
     config["camera_dist"] = camera_dist
     dataset = A.get_dataset(args)
-    # --data-parallel shards over the cards of one host; on one card it
-    # changes nothing, as in JAX on one device.
-    step_fn = make_recon_train_step(sculptor, fuser, photographer, discriminator, config)
-    loader = IterableLoader(dataset, batch_size=args.batch_size,
+    step_fn = make_recon_train_step(sculptor, fuser, photographer, discriminator, config,
+                                    mesh=mesh)
+    loader = IterableLoader(dataset, batch_size=args.batch_size // world,
                             num_workers=args.num_workers, device=device,
-                            transport=args.transport)
+                            transport=args.transport, rank=rank)
     input_noise_sched = (ExponentialScheduler(1.0, 1e-4, args.input_noise_epochs)
                          if discriminator is not None else None)
 
@@ -227,7 +286,7 @@ def main(argv=None):
         discriminator=discriminator, state=state, step_fn=step_fn,
         module_args=margs, lr_schedule=lr_schedule,
         input_noise_sched=input_noise_sched, camera_dist=camera_dist,
-        seed=args.seed, device=device,
+        seed=args.seed, device=device, rank=rank,
         logger_intervals={"scalar_interval": args.plot_interval,
                           "image_interval": args.show_interval,
                           "histogram_interval": args.histogram_interval},

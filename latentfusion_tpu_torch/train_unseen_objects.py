@@ -11,7 +11,7 @@ plus ``--frame-loss-weight`` x the estimator's full-frame depth terms
 decay to 1 % over ``--steps``, in bf16.
 
     python -m latentfusion_tpu_torch.train_unseen_objects --steps 40000 \\
-        --out artifacts/unseen_objects [--family demo|mid|tiny] [--device cpu]
+        --out DIR [--family demo|mid|tiny] [--device cpu]
     python -m latentfusion_tpu_torch.unseen_eval --checkpoint \\
         artifacts/unseen_objects/unseen_objects.npz --out DIR
 
@@ -45,7 +45,9 @@ def get_args(argv=None):
     parser.add_argument("--views-in", type=int, default=6)
     parser.add_argument("--views-out", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
-    parser.add_argument("--out", type=Path, default=Path("artifacts/unseen_objects"))
+    parser.add_argument("--out", type=Path, required=True,
+                        help="output directory (no default, so that a run cannot "
+                             "overwrite the committed artifacts/unseen_objects)")
     parser.add_argument("--init-params", type=Path, default=None,
                         help="warm-start all modules from a same-family npz")
     parser.add_argument("--frame-loss-weight", type=float, default=2.0)

@@ -19,7 +19,7 @@ step on the buffer item a device generator draws. Every item is a
 rasterizer render; the fresh-item count is in ``history.json``.
 
     python -m latentfusion_tpu_torch.train_unseen_real --steps 60000 \\
-        --out artifacts/unseen_real [--workers 8] [--device cpu]
+        --out DIR [--workers 8] [--device cpu]
 
 Writes ``unseen_real.npz`` (the JAX tool's leaves, no keys file) and
 ``history.json``, every ``--save-every`` steps and at the end.
@@ -49,7 +49,9 @@ def get_args(argv=None):
     parser.add_argument("--views-in", type=int, default=6)
     parser.add_argument("--views-out", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
-    parser.add_argument("--out", type=Path, default=Path("artifacts/unseen_real"))
+    parser.add_argument("--out", type=Path, required=True,
+                        help="output directory (no default, so that a run cannot "
+                             "overwrite the committed artifacts/unseen_real)")
     parser.add_argument("--render-width", type=int, default=256)
     parser.add_argument("--render-height", type=int, default=192)
     parser.add_argument("--workers", type=int, default=1,

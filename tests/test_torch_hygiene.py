@@ -96,7 +96,10 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/data/colmap.py",
             "latentfusion_tpu_torch/poserbpf_comparison.py",
             "latentfusion_tpu_torch/metropolis_eval.py",
-            "latentfusion_tpu_torch/serving_accuracy.py"} <= names
+            "latentfusion_tpu_torch/serving_accuracy.py",
+            "latentfusion_tpu_torch/parallel/__init__.py",
+            "latentfusion_tpu_torch/pggan/generator.py",
+            "latentfusion_tpu_torch/videos.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -333,6 +336,39 @@ def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
                        (train_unseen_real.main, ["--out", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+
+
+def test_training_tools_need_out(capsys):
+    """The rigs' training tools have no default --out, so a run from the
+    repo root cannot overwrite the committed artifacts/ checkpoints."""
+    from latentfusion_tpu_torch import (train_encoder_distill, train_unseen_objects,
+                                        train_unseen_real)
+
+    for tool in (train_encoder_distill, train_unseen_objects, train_unseen_real):
+        with pytest.raises(SystemExit):
+            tool.get_args([])
+        assert "--out" in capsys.readouterr().err
+        assert tool.get_args(["--out", "somewhere"]).out == Path("somewhere")
+
+
+def test_parallel_entry_points_raise_without_gpu(no_gpu, monkeypatch):
+    """The process group, the meshes the sharded estimators and steps take,
+    and the generator run on the card unless asked for the CPU."""
+    from latentfusion_tpu_torch import parallel
+    from latentfusion_tpu_torch.pggan import Decoder, Encoder, EncoderDecoder
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.init_distributed()
+    for make in (lambda: parallel.make_mesh(1, parallel.HYPOTHESIS_AXIS),
+                 lambda: parallel.make_mesh(1, parallel.MODEL_AXIS),
+                 lambda: parallel.make_mesh_2d(1, 1),
+                 lambda: EncoderDecoder(3, 2, (4, 8)), lambda: Encoder(3, (4, 8)),
+                 lambda: Decoder(2, (4, 8))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert sum(p.numel() for p in EncoderDecoder(3, 2, (4, 8), device="cpu").parameters())
 
 
 def test_failed_jpeg_build_raises(monkeypatch, tmp_path):

@@ -345,11 +345,15 @@ def test_poserbpf_comparison_matches_jax(same_filter, tmp_path, monkeypatch):
         assert abs(r["rotation_dist"] - j["rotation_dist"]) <= ROT_TOL, (r, j)
 
 
-def test_poserbpf_comparison_refuses_video_and_cpu_by_default(monkeypatch):
+def test_poserbpf_comparison_refuses_video_and_cpu_by_default(monkeypatch, tmp_path):
+    """``--video`` is taken (``videos.py``; the tracked frames are
+    tests/test_torch_videos.py's): the run goes on to read the checkpoint.
+    Without a GPU the tool refuses to run unless asked for the CPU."""
     argv = ["--checkpoint", "x.pth", "--reference-scene", str(CAPTURE / "reference"),
             "--eval-scene", str(CAPTURE / "evaluation")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poserbpf_comparison.main(argv + ["--video", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="x.pth"):
+        poserbpf_comparison.main(argv + ["--video", "--device", "cpu",
+                                         "--out", str(tmp_path / "out")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         poserbpf_comparison.main(argv)
