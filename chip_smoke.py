@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--unseen-latent-rank]
                           [--accuracy-seeds N [N ...] [--with-unseen]]
-                          [--eval-variants] [--parallel-only]
+                          [--eval-variants] [--parallel-only] [--tools-only]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -273,9 +273,28 @@ line after it ends:
    ``--parallel-only`` runs phase 15 alone (with phase 2's generator rows
    and phase 14's ``.pth``).
 
+16. the measurement tools, each through its ``main`` with an argv in this
+   process (traces under _build/tools): ``profile_refinement`` at its
+   defaults (the flagship family with random weights in bf16, Adam on 8
+   hypotheses for 20 steps, one estimate traced) and ``profile_cem`` at
+   128 samples x 10 iterations (its top 15 ops), each printing its trace's
+   top device ops in the JAX tool's format; ``profile_decode``;
+   ``bench_sampler`` on the backends cuda, plain and aten;
+   ``bench_fuser``; ``bench_loader`` at its defaults (640x480, 8 + 24
+   views, 2 workers, batch 2). Gates: every tool returns and prints its
+   lines in the JAX tool's format; each profiler's trace names K1-fwd's
+   and K2-fwd's kernels (``fused_sample_fwd_staged_kernel``,
+   ``lrelu_pnorm_fwd_kernel``), and refinement's also K1-bwd-grid's and
+   K2-bwd's, each launched as many times as its launch counter rose over
+   the traced call, and no ``aten::grid_sampler_3d`` on either lane;
+   bench_sampler's cuda and plain loops' accumulators agree within
+   BF16_TOL, relative, in each mode. Each profiler's traced window's
+   device-busy share is printed, and each tool's seconds.
+   ``--tools-only`` builds the kernels and runs phase 16 alone.
+
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phases 10-14's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10-16's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -284,8 +303,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -389,34 +410,56 @@ def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """ms per call of ``fn`` run back to back, by CUDA events: the device's
     time or, where the host queues work slower than the device runs it,
     the host's."""
+    from latentfusion_tpu_torch.utils import profiling
+
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return profiling.elapsed_ms(lambda: [fn() for _ in range(iters)], "cuda") / iters
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Device ms per call of ``fn``: the summed device time of the kernels
-    it launches (torch.profiler), warm-up excluded. A wrapper's host time
-    (tens of microseconds a call) would hide a short kernel from CUDA events
-    timed back to back."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(iters):
+NO_DEVICE_RECORDS = "no CUDA activity"  # utils.profiling.profile's error for such a session
+
+
+def profiled(fn, profile_memory: bool = False):
+    """One call of ``fn`` under ``utils.profiling.profile``; returns the
+    profiler. A profiler session on this machine now and then keeps no
+    device records (``profile`` raises): the call is not repeated (it may
+    change state), the loss is said, and the tables read no device time."""
+    from latentfusion_tpu_torch.utils import profiling
+
+    try:
+        with profiling.profile(device="cuda", profile_memory=profile_memory) as prof:
             fn()
+    except RuntimeError as err:
+        if NO_DEVICE_RECORDS not in str(err):
+            raise
+        say("  (the profiler kept no device records of this call: its device times read 0)")
+    return prof
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2, sessions: int = 5) -> float:
+    """Device ms per call of ``fn``: the summed device time of the kernels
+    it launches (torch.profiler through ``utils.profiling``), warm-up
+    excluded. A wrapper's host time (tens of microseconds a call) would
+    hide a short kernel from CUDA events timed back to back. A profiler
+    session that keeps no device records (see ``profiled``) raises; the
+    calls are then profiled again, up to ``sessions`` times in all."""
+    from latentfusion_tpu_torch.utils import profiling
+
+    for _ in range(warmup):
+        fn()
+    for session in range(sessions):
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        try:
+            with profiling.profile(device="cuda") as prof:
+                for _ in range(iters):
+                    fn()
+            return profiling.device_ms(prof) / iters
+        except RuntimeError as err:
+            if NO_DEVICE_RECORDS not in str(err) or session == sessions - 1:
+                raise
+            say(f"  (profiler session {session + 1} of {sessions} recorded no CUDA "
+                f"activity: profiled again)")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -1156,12 +1199,10 @@ def hypothesis_cameras(obs, input_size, camera_dist, generator):
 
 def profile_render(model, z, cams) -> None:
     """Print the device time of one render by kernel (torch.profiler)."""
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        model.render_latent_object(z, cams, return_latent=False)
-        torch.cuda.synchronize()
-    say(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    from latentfusion_tpu_torch.utils import profiling
+
+    say(profiling.table(profiled(lambda: model.render_latent_object(
+        z, cams, return_latent=False))))
 
 
 def drive_slice(label, model, objects, kernels, seed, profile):
@@ -1247,14 +1288,11 @@ def views(obs, start: int, stop: int):
 def profile_step(fn):
     """Print the device time of one call of ``fn`` by kernel (torch.profiler);
     returns the profiler's averages by name and its events."""
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    say(averages.table(sort_by="self_device_time_total", row_limit=15))
-    return averages, prof.events()
+    from latentfusion_tpu_torch.utils import profiling
+
+    prof = profiled(fn)
+    say(profiling.table(prof))
+    return prof.key_averages(), prof.events()
 
 
 def range_device_ms(events, name: str) -> float:
@@ -1960,7 +1998,8 @@ def batch_step_check(fine, z_objs, targets, cams) -> None:
     num_objects, views = len(targets), len(cams) // len(targets)
     target = estimation.repeat_frames(Observation.collate(targets), views)
     loss_e, grads_e = fine.loss_and_grads(z_objs, target, cams, num_objects=num_objects)
-    leaves = {k: v.detach().requires_grad_() for k, v in pu.camera_params(cams).items()}
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in pu.camera_params(cams, optimize_viewport=True).items()}
     with torch.enable_grad(), estimation.deterministic_cudnn():
         cam = cams.replace(**leaves)
         z_depth, z_mask_logits, _ = fine._render_zoomed(z_objs, cam)
@@ -2546,11 +2585,11 @@ def phase_recon(model, kernels, seed) -> dict:
                          "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
     say(f"  ms and peak memory: {json.dumps(timings)}")
     # One render_ibr by op: device time and the memory each op allocates.
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities, profile_memory=True) as prof:
-        ibr_model.render_ibr(z, loaded, zoom, return_latent=False)
-        torch.cuda.synchronize()
-    say(prof.key_averages().table(sort_by="self_cuda_memory_usage", row_limit=10))
+    from latentfusion_tpu_torch.utils import profiling
+
+    prof = profiled(lambda: ibr_model.render_ibr(z, loaded, zoom, return_latent=False),
+                    profile_memory=True)
+    say(profiling.table(prof, sort_by="self_cuda_memory_usage", row_limit=10))
     del out, loaded, ibr_model
     torch.cuda.empty_cache()
     return counts
@@ -2558,7 +2597,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/15: the model options and the GAN training step: the training tool's "
+    say("== phase 11/16: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2600,21 +2639,10 @@ def tree_equal(a, b) -> bool:
 def idle_share(fn) -> dict:
     """One call of ``fn`` profiled: the share of its window (first event to
     last) in which no kernel or copy ran on the device, and the busy ms."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.time_range.end > e.time_range.start]
-    start = min(e.time_range.start for e in events)
-    end = max(e.time_range.end for e in events)
-    busy, reach = 0.0, start
-    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events
-                         if e.device_type == DeviceType.CUDA):
-        if hi > reach:
-            busy += hi - max(lo, reach)
-            reach = hi
-    return {"idle_share": 1.0 - busy / (end - start), "busy_ms": busy / 1e3,
-            "window_ms": (end - start) / 1e3}
+    from latentfusion_tpu_torch.utils import profiling
+
+    busy = profiling.device_busy(profiled(fn))
+    return {k: busy[k] for k in ("idle_share", "busy_ms", "window_ms")}
 
 
 def _write_asset(job) -> None:
@@ -2878,7 +2906,7 @@ def phase_data_shapes(fused_sample, seed):
 
 def phase_twelve(kernels, seed, held, smi) -> dict:
     """Phase 12 (a) and (b); returns the launch counts by path."""
-    say("== phase 12/15: the data path: meshes, the rasterizer, augmentation and the loader "
+    say("== phase 12/16: the data path: meshes, the rasterizer, augmentation and the loader "
         "into the flagship training step; held-out objects of unseen_real.npz on "
         "rasterized views")
     t12 = time.perf_counter()
@@ -3797,7 +3825,7 @@ def phase_train_rigs(kernels, smi) -> dict:
 
 def phase_thirteen(kernels, seed, held, smi) -> dict:
     """Phase 13 (a), (b) and (c); returns the launch counts by path."""
-    say("== phase 13/15: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
+    say("== phase 13/16: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
         "JPEG banks), --resume --branch, the .pth rendered; train_ibr on it; the rigs' "
         "training halves")
     t13 = time.perf_counter()
@@ -4192,7 +4220,7 @@ def phase_eval_variants(kernels, smi, state, seed) -> None:
 def phase_fourteen(kernels, seed, held, smi, state, metropolis) -> dict:
     """Phase 14 (a)-(d); ``metropolis`` is phase 6's metropolis_eval run.
     Returns the launch counts by path."""
-    say("== phase 14/15: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
+    say("== phase 14/16: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
         "the examples (demo family, learned weights)")
     t14 = time.perf_counter()
     EVAL_DIR.mkdir(parents=True, exist_ok=True)
@@ -4781,7 +4809,7 @@ def phase_fifteen(kernels, seed, held_k2, smi, pth) -> dict:
     from latentfusion_tpu_torch import parallel
     from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
-    say(f"== phase 15/15: the parallel layer: {PARALLEL_RANKS} ranks sharing the card over "
+    say(f"== phase 15/16: the parallel layer: {PARALLEL_RANKS} ranks sharing the card over "
         f"gloo (the data-parallel step, the sharded estimators, the TP decode), FSDP on "
         f"{FSDP_RANKS} NCCL rank, the PGGAN generator and the video writer")
     t15 = time.perf_counter()
@@ -4917,6 +4945,170 @@ def phase_fifteen(kernels, seed, held_k2, smi, pth) -> dict:
             "generator": gen["generator"]}
 
 
+# Phase 16: the measurement tools (latentfusion_tpu_torch.profile_*, bench_*),
+# each run through its main with an argv, its trace under TOOLS_DIR.
+TOOLS_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "tools"
+# The kernels a profiler's trace must name, by the counter that counts them.
+TRACE_KERNELS = {"K1": "fused_sample_fwd_staged_kernel", "K2": "lrelu_pnorm_fwd_kernel",
+                 "K1b": "fused_sample_bwd_grid_staged_kernel", "K2b": "lrelu_pnorm_bwd_kernel"}
+PROFILERS = {"profile_refinement": ([], ("K1", "K2", "K1b", "K2b")),
+             "profile_cem": (["--samples", "128", "--iters", "10", "--top", "15"], ("K1", "K2"))}
+# Each tool's printed lines in the JAX tool's format.
+OPS_HEADER = re.compile(r"^== plane: /device:cuda \(total \d+\.\d{2} ms\) ==$")
+OPS_LINE = re.compile(r"^ *\d+\.\d{3} ms  [ \d]{2}\d\.\d%  x\d+ +\S.*$")
+TOOL_LINES = {
+    "profile_decode": re.compile(r"^.{40} +\d+\.\d{2} ms$"),
+    "bench_sampler": re.compile(r"^(cuda|plain|aten) +(fwd|fwd\+bwd) *: +\d+\.\d{3} ms/call "
+                                r"\( *\d+\.\d TFLOP/s dense-matmul-equivalent\)$"),
+    "bench_fuser": re.compile(r"^V=(?: 8|16|24) unroll: first call +\d+\.\d{2}s  "
+                              r"fold +\d+\.\d{2} ms$"),
+}
+LOADER_KEYS = [{"stage", "ms_per_render", "renders_per_s"},
+               {"stage", "s_per_item", "renders_per_s_per_worker"},
+               {"stage", "workers", "transport", "s_per_batch", "renders_per_s",
+                "steps_per_s_ceiling"}]
+
+
+class Tee(io.TextIOBase):
+    """Writes to the script's standard output and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self) -> list:
+        return "".join(self.parts).splitlines()
+
+
+def run_tool_main(name: str, argv: list):
+    """``latentfusion_tpu_torch.<name>.main(argv)``: its result, the lines
+    it printed and its seconds."""
+    import importlib
+
+    module = importlib.import_module(f"latentfusion_tpu_torch.{name}")
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = module.main(argv)
+    return result, tee.lines(), time.perf_counter() - t0
+
+
+def counted_profiles(kernels, deltas: list):
+    """``utils.profiling.profile`` patched to record the launch counters'
+    change over each traced region into ``deltas``."""
+    from latentfusion_tpu_torch.utils import profiling
+
+    real = profiling.profile
+
+    @contextlib.contextmanager
+    def profile(*args, **kwargs):
+        before = read_counters(kernels)
+        with real(*args, **kwargs) as prof:
+            yield prof
+        after = read_counters(kernels)
+        deltas.append({k: after[k] - before[k] for k in after})
+
+    return mock.patch.object(profiling, "profile", profile)
+
+
+def check_profiler(name, lines, trace_dir, delta, required, smi) -> dict:
+    """A profiler's gates: its table in the JAX format; the trace names
+    each required kernel, as many times as the counters rose over the
+    traced call; no aten::grid_sampler_3d on either lane. Returns its
+    kernel launches and the window's device-busy share."""
+    from latentfusion_tpu_torch.utils import profiling
+
+    header = [i for i, line in enumerate(lines) if OPS_HEADER.match(line)]
+    rows = lines[header[0] + 1:] if header else []
+    if len(header) != 1 or not rows or not all(OPS_LINE.match(line) for line in rows):
+        fail(f"{name}: its top-ops table is not in the JAX tool's format: {lines[-5:]}")
+    trace = profiling.newest_trace(trace_dir)
+    durations, counts = profiling.op_totals(trace, "cuda")
+    host = profiling.op_totals(trace, "cpu")[0]
+    if any("grid_sampler_3d" in op for op in list(durations) + list(host)):
+        fail(f"{name}: the trace holds aten::grid_sampler_3d, the plain sampler")
+    launches = {}
+    for key in required:
+        launches[key] = sum(c for op, c in counts.items() if TRACE_KERNELS[key] in op)
+        if not launches[key]:
+            fail(f"{name}: the trace names no {TRACE_KERNELS[key]}")
+        if launches[key] != delta[key]:
+            fail(f"{name}: the trace holds {launches[key]} launches of {TRACE_KERNELS[key]}, "
+                 f"the counters {delta[key]}")
+    busy = profiling.device_busy(trace)
+    say(f"   {name}: trace {trace.relative_to(ROOT)} ({trace.stat().st_size / 1e6:.1f} MB), "
+        f"launches {json.dumps(launches)} (the counters' change over the traced call "
+        f"{json.dumps(delta)}), device busy {busy['busy_ms']:.2f} ms of a "
+        f"{busy['window_ms']:.2f} ms window: busy share {busy['busy_share']:.4f} on {smi}")
+    return {"launches": delta, "busy_share": busy["busy_share"],
+            "window_ms": busy["window_ms"], "busy_ms": busy["busy_ms"]}
+
+
+def phase_sixteen(kernels, smi) -> dict:
+    """Phase 16: every measurement tool through its ``main`` at the JAX
+    tool's defaults (profile_cem at 128 samples x 10 iterations, printing
+    its top 15; bench_sampler on the backends cuda, plain and aten). The
+    gates: each tool returns and prints its lines in the JAX tool's format;
+    the profilers' traces name K1-fwd's and K2-fwd's kernels (and, in
+    refinement, K1-bwd-grid's and K2-bwd's), each launched as many times
+    as its counter rose over the traced call, and no aten::grid_sampler_3d;
+    bench_sampler's cuda and plain loops' accumulators agree within
+    phase 2's bf16 tolerance, relative, in each mode. Returns each
+    profiler's launches by kernel counter over its traced call."""
+    import shutil
+
+    say("== phase 16/16: the measurement tools: profile_refinement, profile_cem, "
+        "profile_decode, bench_sampler, bench_fuser and bench_loader through their main")
+    t16 = time.perf_counter()
+    out, seconds = {}, {}
+    for name, (argv, required) in PROFILERS.items():
+        trace_dir = TOOLS_DIR / name
+        for attempt in range(2):
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            deltas = []
+            try:
+                with counted_profiles(kernels, deltas):
+                    _, lines, seconds[name] = run_tool_main(
+                        name, ["--trace-dir", str(trace_dir), *argv])
+                break
+            except RuntimeError as err:
+                if NO_DEVICE_RECORDS not in str(err) or attempt:
+                    raise
+                say(f"   {name}: the profiler kept no device records of the traced call "
+                    f"(see profiled): the tool runs again")
+        if len(deltas) != 1:
+            fail(f"{name}: {len(deltas)} traced regions, not 1")
+        out[name] = check_profiler(name, lines, trace_dir, deltas[0], required, smi)
+    for name, argv in (("profile_decode", []), ("bench_sampler", ["--backends", "cuda,plain,aten"]),
+                       ("bench_fuser", [])):
+        result, lines, seconds[name] = run_tool_main(name, argv)
+        want = {"profile_decode": 4, "bench_sampler": 6, "bench_fuser": 3}[name]
+        if len(lines) != want or not all(TOOL_LINES[name].match(line) for line in lines):
+            fail(f"{name}: {len(lines)} lines, not {want} in the JAX tool's format: {lines}")
+        if name == "bench_sampler":
+            for mode in ("fwd", "fwd+bwd"):
+                cuda, plain = result[f"cuda {mode}"]["acc"], result[f"plain {mode}"]["acc"]
+                err = abs(cuda - plain) / abs(plain)
+                say(f"   bench_sampler {mode}: cuda's accumulator {cuda!r}, plain's {plain!r}, "
+                    f"relative {err:.2e} (gate {BF16_TOL:.2e})")
+                if not err <= BF16_TOL:
+                    fail(f"bench_sampler {mode}: the kernel's loop parts from the plain one "
+                         f"by {err:.2e}")
+    result, lines, seconds["bench_loader"] = run_tool_main("bench_loader", [])
+    records = [json.loads(line) for line in lines]
+    if [set(r) for r in records] != LOADER_KEYS or result != records:
+        fail(f"bench_loader: its JSON lines are not the JAX tool's: {lines}")
+    say(f"   phase 16 seconds by tool: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"phase 16 took {time.perf_counter() - t16:.1f} s on {smi}")
+    return {f"tools_{name}": rec["launches"] for name, rec in out.items()}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4936,6 +5128,8 @@ def main() -> None:
     parser.add_argument("--parallel-only", action="store_true",
                         help="build the kernels, hold K2 at the generator's shapes (phase 2's "
                              "rows), write phase 14's .pth, run phase 15 and exit")
+    parser.add_argument("--tools-only", action="store_true",
+                        help="build the kernels, run phase 16 (the measurement tools) and exit")
     parser.add_argument("--rank-worker", nargs=3, metavar=("DIR", "RANK", "WORLD"),
                         help="internal: one rank of phase 15 (spawned by the script)")
     args = parser.parse_args()
@@ -4963,9 +5157,13 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/15: device, kernel build, reference views")
+    say("== phase 1/16: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
+    if args.tools_only:
+        phase_sixteen(kernels, smi)
+        say(f"   ({time.perf_counter() - t_start:.1f} s)")
+        return
     check_reference_views(torch.device("cuda"))
     state = split_state_dict(from_jax_params(load_params_npz(
         DISTILL / "encoder_distill.npz", DISTILL / "encoder_distill_keys.json")))
@@ -4978,7 +5176,7 @@ def main() -> None:
 
     demo = demo_model()
     if args.parallel_only:
-        say("== phase 2/15, the generator's K2 rows only")
+        say("== phase 2/16, the generator's K2 rows only")
         gen_k2 = phase_generator_kernels(lrelu_pnorm, args.seed)
         EVAL_DIR.mkdir(parents=True, exist_ok=True)
         write_demo_pth(state, EVAL_DIR / "encoder_distill.pth")
@@ -5010,7 +5208,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/15: kernels against their plain versions")
+    say("== phase 2/16: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -5037,7 +5235,7 @@ def main() -> None:
     say(f"   K1 at phase 13's shapes: {json.dumps(trainer_rows)}")
     say(f"   K1 at phase 6's metropolis_eval and phase 14's shapes: {json.dumps(eval_rows)}")
 
-    say(f"== phase 3/15: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/16: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -5048,12 +5246,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/15: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/16: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/15: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/16: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -5064,7 +5262,7 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/15: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/16: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "estimate_batch (fp32) with the refinement step's gradient check; then "
         "metropolis_eval (bf16): CEM and Metropolis")
     t6 = time.perf_counter()
@@ -5074,19 +5272,19 @@ def main() -> None:
     metropolis = phase_metropolis_eval(kernels, eval_held, smi, args.seed)
     say(f"   phase 6 took {time.perf_counter() - t6:.1f} s on {smi}")
 
-    say(f"== phase 7/15: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/16: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/15: the pose service at flagship width, two rounds of requests (the "
+    say("== phase 8/16: the pose service at flagship width, two rounds of requests (the "
         "warm one o0's alone)")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round (o0 alone): {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/15: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/16: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -5094,7 +5292,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/15: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/16: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -5107,6 +5305,7 @@ def main() -> None:
     evaluation = phase_fourteen(kernels, args.seed, eval_held, smi, state, metropolis)
     parallel = phase_fifteen(kernels, args.seed, gen_k2["calls"], smi,
                              EVAL_DIR / "encoder_distill.pth")
+    tools = phase_sixteen(kernels, smi)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -5118,7 +5317,7 @@ def main() -> None:
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
              "reconstruction": recon_counts, **options, **data, **trainer, **evaluation,
-             **parallel}
+             **parallel, **tools}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

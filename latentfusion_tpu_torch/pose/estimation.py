@@ -718,7 +718,7 @@ class GradientPoseEstimator(PoseEstimator):
         deterministic algorithms, so a step repeats its bits
         (``deterministic_cudnn``)."""
         leaves = {k: v.detach().requires_grad_()
-                  for k, v in pu.camera_params(camera).items()}
+                  for k, v in pu.camera_params(camera, optimize_viewport=True).items()}
         with torch.enable_grad(), deterministic_cudnn():
             cam = camera.replace(**leaves)
             z_target_latent = self._maybe_latent_code(target_obs, cam)
@@ -775,7 +775,7 @@ class GradientPoseEstimator(PoseEstimator):
         target_obs = repeat_frames(target_obs, views)
         device = camera.device
         params = {k: v.detach().clone()
-                  for k, v in pu.camera_params(camera).items()}
+                  for k, v in pu.camera_params(camera, optimize_viewport=True).items()}
         opt_state = {k: (torch.zeros_like(p), torch.zeros_like(p))
                      for k, p in params.items()}
         full_viewport = camera.uncrop().viewport

@@ -54,11 +54,19 @@ def sample_cameras_with_estimate(n: int, camera_est: Camera,
     return cameras_with_estimate(camera_est, quaternion, translation)
 
 
-def camera_params(camera: Camera) -> dict:
+def camera_params(camera: Camera, optimize_rotation: bool = True,
+                  optimize_translation: bool = True,
+                  optimize_viewport: bool = False) -> dict:
     """The leaves that refinement optimizes, by ``Camera.replace`` name:
-    rotation, translation and the zoom viewport."""
-    return {"log_quaternion": camera.log_quaternion,
-            "translation": camera.translation, "viewport": camera.viewport}
+    rotation, translation and the zoom viewport, each where its flag asks."""
+    params = {}
+    if optimize_rotation:
+        params["log_quaternion"] = camera.log_quaternion
+    if optimize_translation:
+        params["translation"] = camera.translation
+    if optimize_viewport:
+        params["viewport"] = camera.viewport
+    return params
 
 
 def flip_camera(camera: Camera, axis=(0.0, 0.0, 1.0)) -> Camera:

@@ -99,7 +99,15 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/serving_accuracy.py",
             "latentfusion_tpu_torch/parallel/__init__.py",
             "latentfusion_tpu_torch/pggan/generator.py",
-            "latentfusion_tpu_torch/videos.py"} <= names
+            "latentfusion_tpu_torch/videos.py",
+            "latentfusion_tpu_torch/utils/__init__.py",
+            "latentfusion_tpu_torch/utils/profiling.py",
+            "latentfusion_tpu_torch/profile_refinement.py",
+            "latentfusion_tpu_torch/profile_cem.py",
+            "latentfusion_tpu_torch/profile_decode.py",
+            "latentfusion_tpu_torch/bench_sampler.py",
+            "latentfusion_tpu_torch/bench_fuser.py",
+            "latentfusion_tpu_torch/bench_loader.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -142,6 +150,23 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--demo-tiny", "--stdio"])
+    # The measurement tools: the card unless --cpu (the benches) or
+    # --device cpu (the profilers); bench_loader is host-only, as in JAX.
+    from latentfusion_tpu_torch import (bench_fuser, bench_sampler, profile_cem, profile_decode,
+                                        profile_refinement)
+    from latentfusion_tpu_torch.utils import profiling
+
+    for tool in (profile_refinement, profile_cem, profile_decode, bench_sampler, bench_fuser):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main(["--trace-dir", str(tmp_path)] if tool in (profile_refinement,
+                                                                 profile_cem) else [])
+    for tool in (profile_refinement, profile_cem, profile_decode):
+        assert tool.parse_args(["--device", "cpu"]).device == "cpu"
+    for tool in (bench_sampler, bench_fuser):
+        assert tool.parse_args(["--cpu"]).cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with profiling.profile(tmp_path, device="cuda"):
+            pass
 
 
 def test_pose_entry_points_raise_without_gpu(no_gpu):

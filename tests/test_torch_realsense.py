@@ -1,6 +1,9 @@
 """The port's captured-data loaders and MOPED tracking held against the JAX
 package on the CPU: ``pointcloud.filter_outliers`` (scikit-learn's
-isolation forest rebuilt in numpy) against sklearn's; ``RealsenseDataset``
+isolation forest and elliptic envelope rebuilt in numpy) against sklearn's,
+the envelope's deterministic steps (FastMCD's concentration steps from the
+same start, MinCovDet's correction and reweighting) within 1e-10 in
+float64; ``RealsenseDataset``
 on the committed synthetic MOPED capture and ``ColmapDataset`` on a
 synthetic COLMAP export against JAX's, with the outlier filter patched to
 the same mask on both sides; both trajectory formats; the committed
@@ -84,11 +87,79 @@ def test_filter_outliers_path_lengths():
     np.testing.assert_allclose(pointcloud.average_path_length([0, 1, 2, 3, 256]),
                                [0.0, 0.0, 1.0, 2 * (np.log(2) + np.euler_gamma) - 4 / 3,
                                 2 * (np.log(255) + np.euler_gamma) - 2 * 255 / 256])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pointcloud.filter_outliers(np.zeros((4, 3)), type="elliptic",
-                                   rng=np.random.default_rng(0))
+    # The elliptic envelope on a cloud of at most 500 points (FastMCD's
+    # single-level search): a mask of the points, 5 % of them outliers.
+    cloud = np.random.default_rng(3).normal(size=(60, 3)).astype(np.float32)
+    keep = pointcloud.filter_outliers(cloud, type="elliptic", rng=np.random.default_rng(0))
+    assert keep.dtype == torch.bool and keep.shape == (60,)
+    assert int(keep.sum()) == 57
     with pytest.raises(ValueError):
         pointcloud.filter_outliers(np.zeros((4, 3)), type="lof", rng=np.random.default_rng(0))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_outliers_elliptic_matches_jax(seed):
+    """The elliptic envelope's kept sets agree with JAX's (scikit-learn's
+    ``EllipticEnvelope``, unseeded) on at least 99 % of the points, and both
+    remove every planted outlier."""
+    from latentfusion_tpu.pointcloud import filter_outliers as jfilter
+
+    points, k = planted_cloud(seed)
+    ours = pointcloud.filter_outliers(points, type="elliptic",
+                                      rng=np.random.default_rng(seed)).numpy()
+    theirs = np.asarray(jfilter(points, type="elliptic"))
+    assert ours.dtype == bool and ours.shape == (len(points),)
+    assert (ours == theirs).mean() >= 0.99
+    assert not ours[-k:].any() and not theirs[-k:].any()
+
+
+@pytest.fixture(scope="module")
+def mcd_cloud():
+    """A planted cloud in float64 and scikit-learn's raw FastMCD fit of it."""
+    from sklearn.covariance._robust_covariance import fast_mcd
+
+    x = planted_cloud(0)[0].astype(np.float64)
+    return x, fast_mcd(x, random_state=0)
+
+
+@pytest.mark.parametrize("start", ["head", "raw_fit"])
+def test_elliptic_c_steps_match_sklearn(mcd_cloud, start):
+    """FastMCD's concentration steps from the same initial location and
+    covariance (the first 200 points', or the raw fit's) give
+    scikit-learn's support, location and covariance."""
+    from sklearn.covariance._robust_covariance import c_step
+
+    x, (raw_location, raw_covariance, _, _) = mcd_cloud
+    initial = ((x[:200].mean(0), np.cov(x[:200].T, bias=True)) if start == "head"
+               else (raw_location, raw_covariance))
+    n_support = int(np.ceil(0.5 * (len(x) + x.shape[1] + 1)))
+    want = c_step(x, n_support, initial_estimates=initial)
+    got = pointcloud.c_step(x, n_support, initial=initial)
+    np.testing.assert_array_equal(got[3], want[3])
+    for g, w in ((got[0], want[0]), (got[1], want[1]), (got[4], want[4])):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-10)
+
+
+def test_elliptic_correction_and_reweighting_match_sklearn(mcd_cloud):
+    """MinCovDet's consistency correction and reweighting of the same raw
+    fit: the corrected covariance and distances, the reweighted support,
+    location and covariance, and the final distances."""
+    from sklearn.covariance import MinCovDet
+
+    x, (raw_location, raw_covariance, raw_support, raw_dist) = mcd_cloud
+    mcd = MinCovDet()
+    mcd.raw_location_, mcd.raw_covariance_, mcd.raw_support_ = (raw_location, raw_covariance,
+                                                                raw_support)
+    mcd.location_, mcd.support_, mcd.dist_ = raw_location, raw_support, raw_dist.copy()
+    want_covariance = mcd.correct_covariance(x)
+    covariance, dist = pointcloud.mcd_correct(raw_covariance, raw_support, raw_dist)
+    np.testing.assert_allclose(covariance, want_covariance, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(dist, mcd.dist_, rtol=1e-10, atol=1e-10)
+    want = mcd.reweight_covariance(x)
+    got = pointcloud.mcd_reweight(x, dist)
+    np.testing.assert_array_equal(got[2], want[2])
+    for g, w in ((got[0], want[0]), (got[1], want[1]), (got[3], mcd.dist_)):
+        np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-10)
 
 
 # ------------------------------------------------------------------ datasets
