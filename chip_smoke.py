@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--seed N] [--unseen-latent-rank]
                           [--accuracy-seeds N [N ...] [--with-unseen]]
                           [--eval-variants] [--parallel-only] [--tools-only]
+                          [--experiments-only]
 
 Phases, each announced on its own line before it starts and reported on one
 line after it ends:
@@ -69,10 +70,10 @@ line after it ends:
    gradient_check). One refinement step is profiled: device time by
    kernel, and K2-fwd's and K2-bwd's totals beside phase 2's sums. Then
    the latent path on the same target: configs/cross_entropy_latent.toml
-   then configs/adam_latent.toml; the launch counters must show all five
-   kernels, the refinement run again from the same coarse cameras for its
-   first LATENT_REPEAT_STEPS steps must give the same loss-history bits (a
-   cut for time: the whole 150 before), one step's K1 calls must be shapes phase 2 held, and one
+   then configs/adam_latent.toml for LATENT_STEPS of its 150 steps (a cut
+   for time); the launch counters must show all five
+   kernels, the refinement run again from the same coarse cameras must
+   give the same loss-history and pose bits, one step's K1 calls must be shapes phase 2 held, and one
    step must agree with the plain versions; ms per step, peak memory and
    a profile of one step.
 6. pose accuracy, demo family with the learned weights: the latent of 16
@@ -292,9 +293,37 @@ line after it ends:
    device-busy share is printed, and each tool's seconds.
    ``--tools-only`` builds the kernels and runs phase 16 alone.
 
+17. the learned-weights experiment tools, each through its ``main`` with
+   an argv in this process (scratch ``--out`` directories under
+   _build/experiments): (a) ``train_oracle_distill --skip-train
+   --sharpness-probe`` on a copy of artifacts/oracle_distill's checkpoint at
+   ORACLE_COARSE, 8 targets (JAX's draws, eval_cameras.json): at least
+   ORACLE_GATE of 8 within 0.1d (the record 8), each row printed beside the
+   record's; the sharpness curve's argmin within one step (0.05 rad) of the
+   record's and each point within 1.5x JAX's own bf16-vs-fp32 spread of JAX's
+   CPU bf16 curve (tests/oracle_distill_sharpness.json), the record's TPU
+   curve printed ungated. (b) its training at its defaults (16 views, bf16)
+   for ORACLE_TRAIN_STEPS steps (the record: 60000): finite losses, steps
+   150-199 below steps 0-49 on average, the four training kernels launched,
+   distilled.npz read back the same bits, ms per step by
+   ``utils.profiling.timeit``. (c) ``train_cube_demo`` at its architecture
+   and batch (4 objects, 4 + 8 views, remat, bf16) for CUBE_TRAIN_STEPS
+   steps on a pool of CUBE_POOL batches (JAX: 24 batches, 100k-250k steps),
+   its .pth holding the trained bits through ``from_checkpoint``, then
+   ``--skip-train`` with CUBE_EVAL_TARGETS targets at the tool's search
+   (ungated: JAX's learned records read 0 of 6); steps/s. (d)
+   ``trained_pose_experiment.main`` at its 1200 steps: its two lines and ms
+   per step. (b)-(d): every loss finite, the four training kernels launched
+   in training, K1-fwd, K1-bwd-grid and K2 in the evaluations; every K1 call
+   of the phase at a shape and dtype phase 2 held (EXPERIMENT_K1_SHAPES).
+   (e), in phase 13: the encoder distillation's exported checkpoint.pth
+   builds o0 and renders 128 hypotheses to the bits of its npz.
+   ``--experiments-only`` builds the kernels, holds K1 at phase 17's shapes
+   and runs phase 17 alone.
+
 Then one ``kernels`` JSON line (each kernel's launches on the main path of
 the slice that ported it: phase 5's pose path, phase 7's training step for
-K1-bwd-vol; ``launches_by_path`` has every path, phases 10-16's too). The last line is
+K1-bwd-vol; ``launches_by_path`` has every path, phases 10-17's too). The last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero, as does a
 machine without a GPU. TF32 is off throughout, so kernel and plain paths
 compare in fp32.
@@ -341,7 +370,7 @@ NET_TOL = 5e-4  # a network's output on the kernels vs on the plain versions
 # at most relative to the largest value (phase 2). The gradient's noise
 # floor perturbs the activations at both sizes, rounded up.
 FLOOR_EPS = (1e-7, 4e-7)
-LATENT_REPEAT_STEPS = 25  # phase 5's latent refinement repeat (150 before)
+LATENT_STEPS = 25  # phase 5's latent refinement steps (adam_latent's 150: a cut for time)
 FLOOR_FACTOR = 3.0  # a gradient gated by its noise floor may reach 3x it
 # The gradient of a parameter that does not reach the output (a conv bias
 # before instance norm), relative to the largest gradient: rounding noise.
@@ -1612,7 +1641,8 @@ def record_k1(fused_sample, step_fn, dtypes: bool = False) -> dict:
 def phase_latent_flagship(model, kernels, seed, held):
     """The latent path for view 15 of o0 from the latent of views
     0-14: CEM scored by the latent term (configs/cross_entropy_latent.toml)
-    then refinement with it (configs/adam_latent.toml), each launch-counted
+    then refinement with it (configs/adam_latent.toml, LATENT_STEPS of its
+    150 steps: a cut for time), each launch-counted
     with its peak memory; the refinement again from the same coarse cameras
     must end on the same bits; one step's K1 calls, recorded, must be
     shapes phase 2 held (``held``); one step against the plain versions
@@ -1629,6 +1659,7 @@ def phase_latent_flagship(model, kernels, seed, held):
     coarse = estimation.load_from_config(CONFIGS / "cross_entropy_latent.toml", model)
     fine = estimation.load_from_config(CONFIGS / "adam_latent.toml", model,
                                        track_stats=True)
+    fine.num_iters = LATENT_STEPS
     g = torch.Generator(device=model.device).manual_seed(seed)
     reset_counters(kernels)
     torch.cuda.reset_peak_memory_stats()
@@ -1662,18 +1693,13 @@ def phase_latent_flagship(model, kernels, seed, held):
             and bool(torch.isfinite(best.translation).all())):
         fail("latent: the refinement's losses or poses are not finite")
 
-    # The repeat runs LATENT_REPEAT_STEPS of the steps (a cut for time):
-    # every step's loss reads the cameras of the step before, so the same
-    # history bits over them is the same trajectory.
-    fine.num_iters = LATENT_REPEAT_STEPS
     again, stats2 = fine.estimate(z, target, camera=cams[:fine.num_samples])
     torch.cuda.synchronize()
-    fine.num_iters = steps
-    same_loss = torch.equal(history[:LATENT_REPEAT_STEPS],
-                            stats2["loss_history"][:stats2["num_steps"]])
-    say(f"  latent refinement again from the same coarse cameras for "
-        f"{stats2['num_steps']} of its {steps} steps: loss histories the same bits "
-        f"{same_loss}")
+    same_loss = (torch.equal(history, stats2["loss_history"][:stats2["num_steps"]])
+                 and torch.equal(best.log_quaternion, again.log_quaternion)
+                 and torch.equal(best.translation, again.translation))
+    say(f"  latent refinement again from the same coarse cameras ({stats2['num_steps']} "
+        f"steps): loss histories and poses the same bits {same_loss}")
     zcams = cams[:fine.num_samples].zoom(None, model.input_size, model.camera_dist)
     step = lambda: fine.loss_and_grads(z, target, zcams)
     networks = nn.ModuleList([model.sculptor, model.photographer])
@@ -2597,7 +2623,7 @@ def phase_recon(model, kernels, seed) -> dict:
 
 def phase_eleven(kernels, seed, held, smi) -> dict:
     """Phase 11 (a) and (b); returns the launch counts by path."""
-    say("== phase 11/16: the model options and the GAN training step: the training tool's "
+    say("== phase 11/17: the model options and the GAN training step: the training tool's "
         "default architecture with the discriminator; the Blend and LSTM fusers and skip "
         "connections at flagship width")
     t11 = time.perf_counter()
@@ -2906,7 +2932,7 @@ def phase_data_shapes(fused_sample, seed):
 
 def phase_twelve(kernels, seed, held, smi) -> dict:
     """Phase 12 (a) and (b); returns the launch counts by path."""
-    say("== phase 12/16: the data path: meshes, the rasterizer, augmentation and the loader "
+    say("== phase 12/17: the data path: meshes, the rasterizer, augmentation and the loader "
         "into the flagship training step; held-out objects of unseen_real.npz on "
         "rasterized views")
     t12 = time.perf_counter()
@@ -3820,12 +3846,43 @@ def phase_train_rigs(kernels, smi) -> dict:
         if not all(counts[label][k] > 0 for k in TRAIN_STEP_KERNELS):
             fail(f"{label}: a kernel was not launched: {counts[label]}")
         rig_readback(label, rig_out / f"{stem}.npz", rig_out / f"{stem}_keys.json")
+        if module is train_encoder_distill:
+            distill_pth_check(rig_out, smi)
     return counts
+
+
+def distill_pth_check(rig_out: Path, smi) -> None:
+    """Phase 17 (e): the encoder distillation's exported ``checkpoint.pth``
+    through ``LatentFusionModel.from_checkpoint`` builds o0 and renders 128
+    hypotheses to the same bits as the same weights read from its npz."""
+    from latentfusion_tpu_torch import unseen_eval
+    from latentfusion_tpu_torch.pose.estimation import deterministic_cudnn
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    dev = torch.device("cuda")
+    obs = reference_views(0, dev)
+    outs = []
+    for model in (LatentFusionModel.from_checkpoint(rig_out / "checkpoint.pth"),
+                  unseen_eval.build_model("demo", rig_out / "encoder_distill.npz", dev,
+                                          keys=rig_out / "encoder_distill_keys.json")):
+        cams = hypothesis_cameras(obs, model.input_size, model.camera_dist,
+                                  torch.Generator(device=dev).manual_seed(0))
+        with deterministic_cudnn():
+            z = model.build_latent_object(obs)
+            y, _ = model.render_latent_object(z, cams, return_latent=False)
+        outs.append((z, y))
+        del model
+    (z_pth, y_pth), (z_npz, y_npz) = outs
+    same = torch.equal(z_pth, z_npz) and all(torch.equal(y_pth[k], y_npz[k]) for k in y_npz)
+    say(f"    (e) train_encoder_distill's checkpoint.pth: o0 built and 128 hypotheses rendered "
+        f"from it and from its npz, the same bits: {same} on {smi}")
+    if not same:
+        fail("train_encoder_distill: the .pth's build and render are not the npz's bits")
 
 
 def phase_thirteen(kernels, seed, held, smi) -> dict:
     """Phase 13 (a), (b) and (c); returns the launch counts by path."""
-    say("== phase 13/16: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
+    say("== phase 13/17: the trainer: train_reconstruct on tools/train.sh's flags (bf16, "
         "JPEG banks), --resume --branch, the .pth rendered; train_ibr on it; the rigs' "
         "training halves")
     t13 = time.perf_counter()
@@ -3894,11 +3951,12 @@ EVAL_K1_SHAPES = (
     ("fwd", (1, *_DEMO), 1, "float32"))
 
 
-def phase_eval_shapes(fused_sample, seed, held):
-    """K1 at the shapes of EVAL_K1_SHAPES that no earlier row of phase 2
-    holds (``held``) in their dtype, against the plain versions: each
-    volume random, its grids those of hypothesis cameras around o0 at the
-    demo family's 128^2. Returns the rows and the (op, volume, grids,
+def phase_eval_shapes(fused_sample, seed, held, shapes=EVAL_K1_SHAPES,
+                      label="evaluation harnesses"):
+    """K1 at the ``shapes`` (op, volume, grids, dtype) that no earlier row
+    of phase 2 holds (``held``) in their dtype, against the plain versions:
+    each volume random, its grids those of hypothesis cameras around o0 at
+    the demo family's 128^2. Returns the rows and the (op, volume, grids,
     dtype) held."""
     from latentfusion_tpu_torch import transforms
     from latentfusion_tpu_torch.camera import Camera
@@ -3907,7 +3965,7 @@ def phase_eval_shapes(fused_sample, seed, held):
     g = torch.Generator(device=dev).manual_seed(seed + 17)
     obs = reference_views(0, dev)
     rows = []
-    for op, vol, grids, dtype in EVAL_K1_SHAPES:
+    for op, vol, grids, dtype in shapes:
         if (op, vol, grids, dtype) in held:
             continue
         blocks = -(-grids // N_HYPOTHESES)
@@ -3917,8 +3975,7 @@ def phase_eval_shapes(fused_sample, seed, held):
         v = torch.randn(*vol, generator=g, device=dev)
         gout = (None if op == "fwd" else
                 torch.randn(grids, vol[1], *grid.shape[1:4], generator=g, device=dev))
-        rows.append(k1_at(fused_sample, op, "evaluation harnesses", v, grid, gout,
-                          dtype=getattr(torch, dtype)))
+        rows.append(k1_at(fused_sample, op, label, v, grid, gout, dtype=getattr(torch, dtype)))
         del v, gout, grid
     torch.cuda.empty_cache()
     return rows, {(r["op"], tuple(r["vol"]), r["grids"], r["dtype"]) for r in rows}
@@ -3929,31 +3986,13 @@ def write_demo_pth(state, path) -> None:
     ``.pth`` (``LatentFusionModel.from_checkpoint``'s input); reading it
     back must give the same tensors, bit for bit."""
     from latentfusion_tpu_torch import zoo
+    from latentfusion_tpu_torch.recon import checkpoint as ckpt
     from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
-    common = dict(projection_type="factor", cube_size=1.0, scale_mode="nearest")
-    sculptor = dict(in_size=zoo.DEMO_INPUT_SIZE, image_config=zoo.DEMO_SCULPTOR_IMAGE_CONFIG,
-                    camera_config=zoo.DEMO_SCULPTOR_CAMERA_CONFIG,
-                    object_config=zoo.DEMO_SCULPTOR_OBJECT_CONFIG, input_color=True,
-                    input_depth=True, input_mask=True, **common)
-    photographer = dict(in_size=zoo.DEMO_INPUT_SIZE // 16,
-                        image_config=zoo.DEMO_PHOTOGRAPHER_IMAGE_CONFIG,
-                        camera_config=zoo.DEMO_PHOTOGRAPHER_CAMERA_CONFIG, object_config=None,
-                        predict_color=False, predict_depth=True, predict_mask=True, **common)
-    fuser = zoo.demo_fuser(device="cpu")
-
-    def weights(name):
-        return {k: torch.as_tensor(v).detach().cpu().clone() for k, v in state[name].items()}
-
-    torch.save({"name": "encoder_distill", "epoch": 0, "meter_hists": {},
-                "args": {"camera_dist": zoo.DEMO_CAMERA_DIST, "no_discriminator": True},
-                "modules": {
-                    "sculptor": {"args": sculptor, "state_dict": weights("sculptor")},
-                    "photographer": {"args": photographer,
-                                     "state_dict": weights("photographer")},
-                    "fuser": {"type": "GRUFuser", "args": {"in_channels": fuser.in_channels,
-                                                           "cube_size": fuser.cube_size},
-                              "state_dict": weights("fuser")}}}, path)
+    ckpt.save_reference_checkpoint(
+        path, ckpt.reference_entries(zoo.demo_module_args(), zoo.demo_fuser(device="cpu")),
+        state, name="encoder_distill",
+        args={"camera_dist": zoo.DEMO_CAMERA_DIST, "no_discriminator": True})
     model = LatentFusionModel.from_checkpoint(path)
     for name in ("sculptor", "fuser", "photographer"):
         got = getattr(model, name).state_dict()
@@ -4220,7 +4259,7 @@ def phase_eval_variants(kernels, smi, state, seed) -> None:
 def phase_fourteen(kernels, seed, held, smi, state, metropolis) -> dict:
     """Phase 14 (a)-(d); ``metropolis`` is phase 6's metropolis_eval run.
     Returns the launch counts by path."""
-    say("== phase 14/16: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
+    say("== phase 14/17: the evaluation harnesses: BOP, MOPED tracking, the serving record, "
         "the examples (demo family, learned weights)")
     t14 = time.perf_counter()
     EVAL_DIR.mkdir(parents=True, exist_ok=True)
@@ -4809,7 +4848,7 @@ def phase_fifteen(kernels, seed, held_k2, smi, pth) -> dict:
     from latentfusion_tpu_torch import parallel
     from latentfusion_tpu_torch.recon.inference import LatentFusionModel
 
-    say(f"== phase 15/16: the parallel layer: {PARALLEL_RANKS} ranks sharing the card over "
+    say(f"== phase 15/17: the parallel layer: {PARALLEL_RANKS} ranks sharing the card over "
         f"gloo (the data-parallel step, the sharded estimators, the TP decode), FSDP on "
         f"{FSDP_RANKS} NCCL rank, the PGGAN generator and the video writer")
     t15 = time.perf_counter()
@@ -5063,7 +5102,7 @@ def phase_sixteen(kernels, smi) -> dict:
     profiler's launches by kernel counter over its traced call."""
     import shutil
 
-    say("== phase 16/16: the measurement tools: profile_refinement, profile_cem, "
+    say("== phase 16/17: the measurement tools: profile_refinement, profile_cem, "
         "profile_decode, bench_sampler, bench_fuser and bench_loader through their main")
     t16 = time.perf_counter()
     out, seconds = {}, {}
@@ -5109,6 +5148,265 @@ def phase_sixteen(kernels, smi) -> dict:
     return {f"tools_{name}": rec["launches"] for name, rec in out.items()}
 
 
+# ---------------------------------------------------------------- phase 17
+EXPERIMENT_DIR = ROOT / "latentfusion_tpu_torch" / "_build" / "experiments"
+ORACLE_RECORD = ROOT / "artifacts" / "oracle_distill"
+# The search tests/oracle_distill_witness.py finds the record was made with
+# (its coarse rows are JAX's draws, the same on every backend).
+ORACLE_COARSE = "slow"
+ORACLE_TARGETS = 8
+ORACLE_GATE = 7  # of 8 within 0.1d (the JAX record: 8; the port's CEM draws differ)
+SHARPNESS = ROOT / "tests" / "oracle_distill_sharpness.json"  # JAX's CPU curves
+SHARPNESS_STEP = 0.05  # rad, the probe's spacing: the argmin within one step of the record's
+SHARPNESS_FACTOR = 1.5  # x JAX's own bf16-vs-fp32 spread (ROADMAP Queue 3 item 11's bound)
+ORACLE_TRAIN_STEPS = 200  # the record: 60000
+CUBE_TRAIN_STEPS = 20  # the records: 100k and 250k
+CUBE_POOL = 2  # JAX's default: 24 batches
+CUBE_EVAL_TARGETS = 2
+_SMALL = (16, 16, 16, 16)  # the trained-pose experiment's latent: 16 channels of 16^3
+# K1's calls on phase 17's paths that no earlier row holds, by (op, volume,
+# grids, dtype), as each leg prints them: the oracle distillation's probe
+# and scores (1 camera) and slow CEM (200), its training decode into the
+# broadcast latent (16 volumes); the cube demo's decode (4 objects x 8
+# views) and its evaluation in bf16 (8 references, CEM 64, refinement 8);
+# the trained-pose experiment's 16^3 volumes in fp32.
+EXPERIMENT_K1_SHAPES = (
+    ("fwd", (1, *_DEMO), 1, "bfloat16"), ("fwd", (1, *_DEMO), 200, "bfloat16"),
+    ("fwd", (1, *_DEMO), 128, "bfloat16"), ("fwd", (1, *_DEMO), 16, "bfloat16"),
+    ("bwd_grid", (1, *_DEMO), 16, "bfloat16"),
+    ("fwd", (16, *_DEMO), 16, "bfloat16"), ("bwd_vol", (16, *_DEMO), 16, "bfloat16"),
+    ("fwd", (4, *_DEMO), 32, "bfloat16"), ("bwd_vol", (4, *_DEMO), 32, "bfloat16"),
+    ("fwd", (8, *_DEMO), 8, "bfloat16"), ("fwd", (1, *_DEMO), 64, "bfloat16"),
+    ("fwd", (1, *_DEMO), 8, "bfloat16"), ("bwd_grid", (1, *_DEMO), 8, "bfloat16"),
+    ("fwd", (2, *_SMALL), 2, "float32"), ("fwd", (1, *_SMALL), 2, "float32"),
+    ("bwd_vol", (2, *_SMALL), 2, "float32"), ("bwd_vol", (1, *_SMALL), 2, "float32"),
+    ("fwd", (8, *_SMALL), 8, "float32"), ("fwd", (1, *_SMALL), 8, "float32"),
+    ("bwd_grid", (1, *_SMALL), 8, "float32"))
+
+
+@contextlib.contextmanager
+def counted(kernels, module, name, record: dict):
+    """``module.name`` wrapped: the counters set to 0 just before each call
+    and read just after into ``record["counts"]``, its synchronised seconds
+    into ``record["seconds"]``, its result into ``record["result"]`` and its
+    positional arguments into ``record["args"]``."""
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.update(seconds=time.perf_counter() - t0, counts=read_counters(kernels),
+                      result=out, args=args)
+        return out
+
+    with mock.patch.object(module, name, run):
+        yield
+
+
+def loss_values(losses) -> list:
+    return [float(x) for x in torch.stack([torch.as_tensor(x).float() for x in losses]).cpu()]
+
+
+def check_training(label, counts, losses, smi) -> None:
+    """Every loss finite and the four training kernels launched."""
+    say(f"    {label} training launches {json.dumps(counts)} on {smi}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: a training loss is not finite")
+    if not all(counts[k] > 0 for k in TRAIN_STEP_KERNELS):
+        fail(f"{label}: a training kernel was not launched: {counts}")
+
+
+def phase_oracle_eval(kernels, held, smi) -> dict:
+    """(a) ``train_oracle_distill --skip-train --sharpness-probe`` on a scratch
+    copy of the committed checkpoint at ORACLE_COARSE: at least ORACLE_GATE
+    of 8 within 0.1d; the card's bf16 sharpness curve's argmin within one
+    step of the record's, and each point within SHARPNESS_FACTOR x JAX's own
+    bf16-vs-fp32 spread of JAX's CPU bf16 curve."""
+    import shutil
+
+    from latentfusion_tpu_torch import train_oracle_distill
+
+    out = EXPERIMENT_DIR / "oracle_eval"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for name in ("distilled.npz", "distilled_keys.json"):
+        shutil.copy(ORACLE_RECORD / name, out / name)
+    leg = eval_leg(f"(a) oracle distillation, the committed checkpoint, {ORACLE_COARSE} search",
+                   kernels, lambda: train_oracle_distill.main([
+                       "--skip-train", "--sharpness-probe", "--eval-targets",
+                       str(ORACLE_TARGETS), "--coarse-config", ORACLE_COARSE,
+                       "--out", str(out)]), held, smi)
+    summary = leg["result"]
+    record = json.loads((ORACLE_RECORD / "pose_eval.json").read_text())
+    for ours, theirs in zip(summary["targets"], record["targets"]):
+        say(f"    target {ours['target']}: refined add_s {ours['refined']['add_s']:.4f} "
+            f"rot {ours['refined']['rotation_dist']:.3f} trans "
+            f"{ours['refined']['translation_dist']:.4f} 0.1d {ours['add_s_01d']} "
+            f"loss_gt {ours['loss_at_gt']:.4f} loss_ref {ours['loss_refined']:.4f}; the "
+            f"record's: {theirs['refined']['add_s']:.4f}, {theirs['refined']['rotation_dist']:.3f}, "
+            f"{theirs['refined']['translation_dist']:.4f}, {theirs['add_s_01d']}, "
+            f"{theirs['loss_at_gt']:.4f}, {theirs['loss_refined']:.4f}")
+    hits = sum(r["add_s_01d"] for r in summary["targets"])
+    curves = json.loads(SHARPNESS.read_text())
+    card = [p["loss"] for p in summary["sharpness_curve"]]
+    angles = [p["angle_rad"] for p in summary["sharpness_curve"]]
+    bound = SHARPNESS_FACTOR * curves["bf16_fp32_spread"]
+    off = max(abs(a - b) for a, b in zip(card, curves["bfloat16"]))
+    argmin = angles[int(np.argmin(card))]
+    say(f"    ADD-S 0.1d on {hits} of {ORACLE_TARGETS} (gate {ORACLE_GATE}; the record "
+        f"{sum(r['add_s_01d'] for r in record['targets'])}); sharpness, the card's bf16 "
+        f"{json.dumps([round(x, 6) for x in card])}, argmin {argmin:.2f} rad (the record's "
+        f"{curves['argmin_rad']['record_tpu']:.2f}); JAX's CPU bf16 "
+        f"{json.dumps([round(x, 6) for x in curves['bfloat16']])}: largest distance {off:.3g} "
+        f"(gate {bound:.3g} = {SHARPNESS_FACTOR} x {curves['bf16_fp32_spread']:.3g}); the "
+        f"record's TPU curve, ungated, {json.dumps([round(x, 6) for x in curves['record_tpu']])}"
+        f" on {smi}")
+    if hits < ORACLE_GATE:
+        fail(f"oracle distillation: {hits} of {ORACLE_TARGETS} within 0.1d, under the gate "
+             f"{ORACLE_GATE}")
+    if abs(argmin - curves["argmin_rad"]["record_tpu"]) > SHARPNESS_STEP + 1e-6:
+        fail(f"oracle distillation: the sharpness curve's argmin {argmin:.2f} rad is more than "
+             f"one step from the record's")
+    if not off <= bound:
+        fail(f"oracle distillation: the card's sharpness curve lies {off:.3g} from JAX's CPU "
+             f"bf16 curve (gate {bound:.3g})")
+    return leg["counts"]
+
+
+def phase_oracle_train(kernels, held, smi) -> dict:
+    """(b) ``train_oracle_distill`` for ORACLE_TRAIN_STEPS steps at its
+    defaults (16 views, bf16), no evaluation target: finite losses, the
+    mean of the last 50 below the mean of the first 50, the four training
+    kernels launched, the written npz read back the same bits; ms per step
+    by ``utils.profiling.timeit``."""
+    from latentfusion_tpu_torch import dtypes, testing, train_oracle_distill as tod, zoo
+    from latentfusion_tpu_torch.train_encoder_distill import train_step
+    from latentfusion_tpu_torch.utils import cosine_decay_schedule, profiling
+
+    out = EXPERIMENT_DIR / "oracle_train"
+    train = {}
+    with counted(kernels, tod, "train", train):
+        eval_leg(f"(b) oracle distillation, {ORACLE_TRAIN_STEPS} training steps",
+                 kernels, lambda: tod.main(["--steps", str(ORACLE_TRAIN_STEPS),
+                                            "--eval-targets", "0", "--out", str(out)]),
+                 held, smi, required=())
+    z_obj, _, losses = train["result"]
+    losses = loss_values(losses)
+    photographer = train["args"][1]
+    check_training("(b)", train["counts"], losses, smi)
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    say(f"    losses: steps 0-49 mean {first:.4f}, steps {ORACLE_TRAIN_STEPS - 50}-"
+        f"{ORACLE_TRAIN_STEPS - 1} mean {last:.4f}; {train['seconds']:.1f} s for "
+        f"{ORACLE_TRAIN_STEPS} steps")
+    if not last < first:
+        fail("oracle distillation: the loss did not fall over training")
+    device = torch.device("cuda")
+    reread = zoo.demo_photographer(device=device)
+    z_back = tod.load_distilled(out, reread, device)
+    trained = photographer.state_dict()
+    if not (torch.equal(z_back, z_obj) and all(torch.equal(v, trained[k])
+                                               for k, v in reread.state_dict().items())):
+        fail("oracle distillation: distilled.npz does not read back as the trained bits")
+    # ms per step at the tool's sizes, from the trained state (bf16 as the tool runs it;
+    # the evaluation model froze the photographer).
+    photographer.train().requires_grad_(True)
+    z = z_obj.clone().requires_grad_(True)
+    opt = torch.optim.Adam(list(photographer.parameters()) + [z], lr=1e-3, betas=(0.9, 0.99))
+    schedule = cosine_decay_schedule(1e-3, ORACLE_TRAIN_STEPS, alpha=0.01)
+    oracle = testing.EllipsoidOracleModel(input_size=tod.INPUT_SIZE, camera_dist=tod.CAMERA_DIST,
+                                          axes=tod.AXES, device=device)
+    g = torch.Generator(device).manual_seed(1)
+    with dtypes.compute_dtype(torch.bfloat16):
+        s = profiling.timeit(lambda: train_step(opt, schedule, 0, lambda: tod.distill_loss(
+            photographer, z, oracle, zoo.random_view_cameras(16, g, tod.CAMERA_DIST, device=device),
+            2.0))[0], reps=5)
+    say(f"    {s * 1e3:.1f} ms per step (utils.profiling.timeit, 5 steps after 1) on {smi}")
+    return {"oracle_distill_train": train["counts"]}
+
+
+def phase_cube_demo(kernels, held, smi) -> dict:
+    """(c) ``train_cube_demo`` at its architecture and batch (4 objects, 4 + 8
+    views, remat, bf16) for CUBE_TRAIN_STEPS steps on a pool of CUBE_POOL
+    batches; then ``--skip-train`` from the .pth it wrote (which must hold
+    the trained bits) with CUBE_EVAL_TARGETS targets at the tool's search."""
+    from latentfusion_tpu_torch import train_cube_demo as tcd
+    from latentfusion_tpu_torch.recon.inference import LatentFusionModel
+
+    out = EXPERIMENT_DIR / "cube"
+    train, models = {}, {}
+    make = tcd.make_models
+
+    def keep(*args, **kwargs):
+        models["mods"] = make(*args, **kwargs)
+        return models["mods"]
+
+    with counted(kernels, tcd, "train", train), mock.patch.object(tcd, "make_models", keep):
+        eval_leg(f"(c) cube demo, {CUBE_TRAIN_STEPS} steps on a pool of {CUBE_POOL}", kernels,
+                 lambda: tcd.main(["--steps", str(CUBE_TRAIN_STEPS), "--pool", str(CUBE_POOL),
+                                   "--eval-targets", "0", "--out", str(out)]), held, smi,
+                 required=())
+    losses = loss_values(train["result"][2])
+    check_training("(c)", train["counts"], losses, smi)
+    say(f"    losses {json.dumps([round(x, 4) for x in losses])}; "
+        f"{CUBE_TRAIN_STEPS / train['seconds']:.2f} steps/s ({train['seconds']:.1f} s) on {smi}")
+    loaded = LatentFusionModel.from_checkpoint(out / "checkpoint.pth")
+    for name, module in zip(("sculptor", "fuser", "photographer"), models["mods"]):
+        got = getattr(loaded, name).state_dict()
+        if not all(torch.equal(v, got[k]) for k, v in module.state_dict().items()):
+            fail(f"cube demo: the .pth's {name} is not the trained bits")
+    del loaded
+    leg = eval_leg(f"(c) cube demo --skip-train from its .pth, {CUBE_EVAL_TARGETS} targets",
+                   kernels, lambda: tcd.main(["--skip-train", "--eval-targets",
+                                              str(CUBE_EVAL_TARGETS), "--out", str(out)]),
+                   held, smi, required=("K1", "K1b", "K2"))
+    say(f"    ADD-S 0.1d {leg['result']['add_s_0.1d']} (ungated: JAX's learned records read "
+        f"0 of 6); rows {json.dumps(leg['result']['targets'])}")
+    return {"cube_demo_train": train["counts"], "cube_demo_eval": leg["counts"]}
+
+
+def phase_trained_pose(kernels, held, smi) -> dict:
+    """(d) ``trained_pose_experiment.main`` at its 1200 steps: finite
+    losses, the training kernels in training, K1-fwd, K1-bwd-grid and K2 in
+    the refinement; its two lines and ms per step."""
+    from latentfusion_tpu_torch import trained_pose_experiment as tpe
+
+    train, refine = {}, {}
+    with counted(kernels, tpe, "train", train), counted(kernels, tpe, "refine", refine):
+        leg = eval_leg(f"(d) trained-pose experiment, {tpe.STEPS} steps", kernels,
+                       lambda: tpe.main([]), held, smi, required=())
+    losses = loss_values(leg["result"]["losses"])
+    check_training("(d)", train["counts"], losses, smi)
+    say(f"    {train['seconds'] / tpe.STEPS * 1e3:.2f} ms per step ({train['seconds']:.1f} s for "
+        f"{tpe.STEPS}); refinement launches {json.dumps(refine['counts'])}, "
+        f"{refine['seconds']:.1f} s; init errs "
+        f"{json.dumps([round(x, 3) for x in leg['result']['init_errs']])}, ranked finals "
+        f"{json.dumps([round(x, 3) for x in leg['result']['final_errs']])} on {smi}")
+    if not all(refine["counts"][k] > 0 for k in ("K1", "K1b", "K2")):
+        fail(f"trained-pose experiment: a refinement kernel was not launched: {refine['counts']}")
+    return {"trained_pose_train": train["counts"], "trained_pose_refine": refine["counts"]}
+
+
+def phase_seventeen(kernels, held, smi) -> dict:
+    """Phase 17 (a)-(d); returns the launch counts by path."""
+    say("== phase 17/17: the learned-weights experiment tools: oracle distillation from its "
+        "committed checkpoint and trained, the cube demo, the trained-pose experiment")
+    t17 = time.perf_counter()
+    counts, seconds = {}, {}
+    for part, fn in (("a", phase_oracle_eval), ("b", phase_oracle_train),
+                     ("c", phase_cube_demo), ("d", phase_trained_pose)):
+        t0 = time.perf_counter()
+        result = fn(kernels, held, smi)
+        counts.update(result if part != "a" else {"oracle_distill_eval": result})
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    say(f"   phase 17 launches {json.dumps(counts)}; seconds by part {json.dumps(seconds)}; "
+        f"phase 17 took {time.perf_counter() - t17:.1f} s on {smi}")
+    return counts
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5130,6 +5428,9 @@ def main() -> None:
                              "rows), write phase 14's .pth, run phase 15 and exit")
     parser.add_argument("--tools-only", action="store_true",
                         help="build the kernels, run phase 16 (the measurement tools) and exit")
+    parser.add_argument("--experiments-only", action="store_true",
+                        help="build the kernels, hold K1 at phase 17's shapes (phase 2's "
+                             "rows), run phase 17 (the experiment tools) and exit")
     parser.add_argument("--rank-worker", nargs=3, metavar=("DIR", "RANK", "WORLD"),
                         help="internal: one rank of phase 15 (spawned by the script)")
     args = parser.parse_args()
@@ -5157,11 +5458,19 @@ def main() -> None:
     objects = [("o0", 0), ("o1", 1)]
     t_start = time.perf_counter()
 
-    say("== phase 1/16: device, kernel build, reference views")
+    say("== phase 1/17: device, kernel build, reference views")
     smi, build_s = phase_device(_build)
     say(f"   device: {torch.cuda.get_device_name(0)}; kernels built in {build_s:.2f} s")
     if args.tools_only:
         phase_sixteen(kernels, smi)
+        say(f"   ({time.perf_counter() - t_start:.1f} s)")
+        return
+    if args.experiments_only:
+        say("== phase 2/17, the experiment tools' K1 rows only")
+        rows, held = phase_eval_shapes(fused_sample, args.seed, set(), EXPERIMENT_K1_SHAPES,
+                                       "experiment tools")
+        say(f"   K1 at phase 17's shapes: {json.dumps(rows)}")
+        phase_seventeen(kernels, held, smi)
         say(f"   ({time.perf_counter() - t_start:.1f} s)")
         return
     check_reference_views(torch.device("cuda"))
@@ -5176,7 +5485,7 @@ def main() -> None:
 
     demo = demo_model()
     if args.parallel_only:
-        say("== phase 2/16, the generator's K2 rows only")
+        say("== phase 2/17, the generator's K2 rows only")
         gen_k2 = phase_generator_kernels(lrelu_pnorm, args.seed)
         EVAL_DIR.mkdir(parents=True, exist_ok=True)
         write_demo_pth(state, EVAL_DIR / "encoder_distill.pth")
@@ -5208,7 +5517,7 @@ def main() -> None:
             f"({time.perf_counter() - t_start:.1f} s)")
         return
 
-    say("== phase 2/16: kernels against their plain versions")
+    say("== phase 2/17: kernels against their plain versions")
     records, k1_table, k2f_tables = phase_kernels(fused_sample, lrelu_pnorm, args.seed)
     bwd_records, k2b_table = phase_bwd_kernels(fused_sample, lrelu_pnorm, args.seed)
     records.update(bwd_records)
@@ -5223,6 +5532,9 @@ def main() -> None:
     eval_held = {(*k, "float32") for k in data_held} | trainer_held
     eval_rows, new_eval_held = phase_eval_shapes(fused_sample, args.seed, eval_held)
     eval_held |= new_eval_held
+    experiment_rows, experiment_held = phase_eval_shapes(
+        fused_sample, args.seed, eval_held, EXPERIMENT_K1_SHAPES, "experiment tools")
+    experiment_held |= eval_held
     gen_k2 = phase_generator_kernels(lrelu_pnorm, args.seed)
     say(f"   kernels: {json.dumps({k: {m: v[m] for m in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for k, v in records.items()})}")
     say(f"   K1-fwd by shape (kernel that served it): "
@@ -5234,8 +5546,9 @@ def main() -> None:
     say(f"   K1 at phase 12's shapes: {json.dumps(data_rows)}")
     say(f"   K1 at phase 13's shapes: {json.dumps(trainer_rows)}")
     say(f"   K1 at phase 6's metropolis_eval and phase 14's shapes: {json.dumps(eval_rows)}")
+    say(f"   K1 at phase 17's shapes: {json.dumps(experiment_rows)}")
 
-    say(f"== phase 3/16: flagship build from 16 views + render of {N_HYPOTHESES}")
+    say(f"== phase 3/17: flagship build from 16 views + render of {N_HYPOTHESES}")
     gen = torch.Generator().manual_seed(args.seed)
     flagship = LatentFusionModel(zoo.flagship_sculptor(generator=gen), None,
                                  zoo.flagship_fuser(generator=gen), None,
@@ -5246,12 +5559,12 @@ def main() -> None:
     say(f"   flagship launches per object: {json.dumps(counts)}")
     build_launches(flagship, kernels)
 
-    say(f"== phase 4/16: demo family, learned weights, render of {N_HYPOTHESES}")
+    say(f"== phase 4/17: demo family, learned weights, render of {N_HYPOTHESES}")
     demo_counts = drive_slice("demo", demo, objects, kernels, args.seed,
                               profile=False)
     say(f"   demo launches per object: {json.dumps(demo_counts)}")
 
-    say("== phase 5/16: flagship pose of view 15 of o0: CEM "
+    say("== phase 5/17: flagship pose of view 15 of o0: CEM "
         "(cross_entropy_quick) then refinement (adam_quick); then the latent path "
         "(cross_entropy_latent, adam_latent)")
     pose_counts = phase_pose_flagship(flagship, kernels, args.seed, {
@@ -5262,7 +5575,7 @@ def main() -> None:
         f"{json.dumps(latent_refine)}")
     torch.cuda.empty_cache()
 
-    say("== phase 6/16: pose accuracy, demo family, learned weights, 8 oracle targets: "
+    say("== phase 6/17: pose accuracy, demo family, learned weights, 8 oracle targets: "
         "estimate_batch (fp32) with the refinement step's gradient check; then "
         "metropolis_eval (bf16): CEM and Metropolis")
     t6 = time.perf_counter()
@@ -5272,19 +5585,19 @@ def main() -> None:
     metropolis = phase_metropolis_eval(kernels, eval_held, smi, args.seed)
     say(f"   phase 6 took {time.perf_counter() - t6:.1f} s on {smi}")
 
-    say(f"== phase 7/16: flagship training step, global batch {TRAIN_BATCH} in "
+    say(f"== phase 7/17: flagship training step, global batch {TRAIN_BATCH} in "
         f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_IN} + {TRAIN_OUT} views")
     train_counts = phase_train(kernels, args.seed)
     say(f"   training step launches: {json.dumps(train_counts)}")
 
-    say("== phase 8/16: the pose service at flagship width, two rounds of requests (the "
+    say("== phase 8/17: the pose service at flagship width, two rounds of requests (the "
         "warm one o0's alone)")
     service_counts = phase_service(flagship, kernels, args.seed)
     say(f"   service launches, warm round (o0 alone): {json.dumps(service_counts)}")
     del flagship
     torch.cuda.empty_cache()
 
-    say(f"== phase 9/16: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
+    say(f"== phase 9/17: unseen objects, pool-128 checkpoint, {UNSEEN_OBJECTS} held-out objects "
         f"x {UNSEEN_TARGETS} targets in estimate_batch; then the mid width")
     t9 = time.perf_counter()
     unseen = phase_unseen(kernels, args.seed, held, latent_rank=args.unseen_latent_rank)
@@ -5292,7 +5605,7 @@ def main() -> None:
         f"{UNSEEN_OBJECTS * UNSEEN_TARGETS} within 0.1d (gate {UNSEEN_GATE}); phase 9 took "
         f"{time.perf_counter() - t9:.1f} s on {smi}")
 
-    say("== phase 10/16: the reconstruction API, demo family, learned weights: 16 oracle "
+    say("== phase 10/17: the reconstruction API, demo family, learned weights: 16 oracle "
         "views through save + load, render_full, render_ibr_basic and render_ibr at 8 targets")
     t10 = time.perf_counter()
     recon_counts = phase_recon(demo_model(), kernels, args.seed)
@@ -5306,6 +5619,7 @@ def main() -> None:
     parallel = phase_fifteen(kernels, args.seed, gen_k2["calls"], smi,
                              EVAL_DIR / "encoder_distill.pth")
     tools = phase_sixteen(kernels, smi)
+    experiments = phase_seventeen(kernels, experiment_held, smi)
 
     total = time.perf_counter() - t_start
     say(f"   total {total:.1f} s on {smi}")
@@ -5317,7 +5631,7 @@ def main() -> None:
              "unseen_demo_batches": unseen["demo"]["counts"],
              "unseen_mid_round": unseen["mid"]["counts"],
              "reconstruction": recon_counts, **options, **data, **trainer, **evaluation,
-             **parallel, **tools}
+             **parallel, **tools, **experiments}
     for key in records:
         records[key]["launches_by_path"] = {path: c[key] for path, c in paths.items()}
         records[key]["launches"] = train_counts[key] if key == "K1bv" else pose_counts[key]

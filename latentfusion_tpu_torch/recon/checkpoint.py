@@ -229,3 +229,29 @@ def generator_from_checkpoint(checkpoint: Mapping[str, Any]):
     module = UNet2d(**args)
     module.load_state_dict({k: torch.as_tensor(v) for k, v in gen["state_dict"].items()})
     return module
+
+
+def reference_entries(module_args: Mapping[str, Mapping[str, Any]], fuser) -> dict:
+    """A reference ``.pth``'s module entries without their weights: each of
+    ``module_args`` (the JAX modules' ``checkpoint_args()``) as ``{"args":
+    ...}``, and the fuser's type, width and cube size."""
+    return {**{name: {"args": dict(args)} for name, args in module_args.items()},
+            "fuser": {"type": type(fuser).__name__,
+                      "args": {"in_channels": getattr(fuser, "in_channels", None),
+                               "cube_size": getattr(fuser, "cube_size", 1.0)}}}
+
+
+def save_reference_checkpoint(path, entries: Mapping[str, Mapping[str, Any]],
+                              state_dicts: Mapping[str, Mapping[str, Any]], *, name: str,
+                              args: Mapping[str, Any], epoch: int = 0) -> None:
+    """Write the reference-schema ``.pth`` (``tools/train_cube_demo.py:185-209``,
+    the trainer's export): ``name``, ``epoch``, the run's ``args``, and for
+    each module its entry (``reference_entries``) with its state dict on the
+    CPU (numpy arrays are taken as tensors). Raises if the write fails."""
+    torch.save({"name": name, "epoch": epoch, "meter_hists": {}, "args": dict(args),
+                "modules": {
+                    module: {**entry, "state_dict": {
+                        k: torch.as_tensor(v).detach().cpu().clone()
+                        for k, v in state_dicts[module].items()}}
+                    for module, entry in entries.items()}},
+               path)

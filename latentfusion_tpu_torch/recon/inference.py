@@ -38,7 +38,9 @@ class LatentFusionModel:
         weights); ``generator`` is the optional IBR generator that
         ``render_ibr`` needs. The modules are moved to ``device``, set to
         eval and frozen: gradients flow to the inputs (cameras), never the
-        weights."""
+        weights. A decoder-only model (``sculptor`` None) renders a latent
+        it is given; its ``input_size`` is None until the caller sets it,
+        and what needs the Sculptor raises."""
         self.device = resolve_device(device)
         for module, state in ((sculptor, sculptor_state), (fuser, fuser_state),
                               (photographer, photographer_state),
@@ -53,7 +55,7 @@ class LatentFusionModel:
         self.photographer = photographer
         self.generator = generator
         self.camera_dist = camera_dist
-        self.input_size = sculptor.in_size
+        self.input_size = None if sculptor is None else sculptor.in_size
 
     @classmethod
     def from_checkpoint(cls, checkpoint, device="cuda") -> "LatentFusionModel":
@@ -70,18 +72,29 @@ class LatentFusionModel:
                    camera_dist=checkpoint["args"]["camera_dist"], device=device,
                    generator=ckpt.generator_from_checkpoint(checkpoint))
 
+    def _need_sculptor(self, what: str) -> None:
+        if self.sculptor is None:
+            raise ValueError(f"{what} needs the Sculptor, and this model is decoder-only "
+                             "(sculptor=None)")
+
+    def _zoom_size(self) -> int:
+        if self.input_size is None:
+            raise ValueError("input_size is None: a decoder-only model's caller sets it "
+                             "before anything is zoomed")
+        return self.input_size
+
     def zoom_observation(self, observation: Observation) -> Observation:
         """The observation zoomed to the model's camera distance and input
         size, unless it is already."""
         if not observation.meta["is_zoomed"]:
-            return observation.zoom(self.camera_dist, self.input_size)
+            return observation.zoom(self.camera_dist, self._zoom_size())
         return observation
 
     def preprocess_observation(self, observation: Observation) -> Observation:
         """Zoom to the model's camera distance and input size, mask out the
         background, normalize; each step only once."""
         if not observation.meta["is_zoomed"]:
-            observation = observation.zoom(self.camera_dist, self.input_size)
+            observation = observation.zoom(self.camera_dist, self._zoom_size())
         if not observation.meta["is_prepared"]:
             observation = observation.prepare()
         if not observation.meta["is_normalized"]:
@@ -92,6 +105,7 @@ class LatentFusionModel:
     def build_latent_object(self, observation: Observation) -> torch.Tensor:
         """Encode and fuse all views of ``observation`` into one latent
         object (1, 1, C, S, S, S)."""
+        self._need_sculptor("build_latent_object")
         obs = self.preprocess_observation(observation)
         return models.encode(self.sculptor, self.fuser, obs.camera,
                              obs.color[None], obs.depth[None], obs.mask[None])
@@ -103,6 +117,7 @@ class LatentFusionModel:
         ``len(camera)`` if it is a single frame, and each frame is encoded
         and decoded at its camera. Autograd stays on, so a loss of it
         reaches the camera. Returns (N, C, H, W)."""
+        self._need_sculptor("compute_latent_code")
         obs = self.preprocess_observation(observation)
         if len(obs) == 1:
             obs = obs.expand(len(camera))
@@ -144,7 +159,7 @@ class LatentFusionModel:
         package squeezes it a second time, which fails for every N
         (ROADMAP Queue 3), and the original's second squeeze is a no-op for
         N > 1: the port takes the (N, 3, h, w) color as it is."""
-        camera_zoom = camera.zoom(None, self.input_size, self.camera_dist)
+        camera_zoom = camera.zoom(None, self._zoom_size(), self.camera_dist)
         if input_obs is None:
             pred_y, _ = self.render_latent_object(z_obj, camera_zoom, apply_mask=True,
                                                   return_latent=False)

@@ -214,41 +214,30 @@ class ReconTrainer(Trainer):
         return mods
 
     def _module_entries(self) -> Dict[str, Dict[str, Any]]:
-        fuser = self.fuser
-        entries = {
-            "sculptor": {"args": self.module_args["sculptor"]},
-            "photographer": {"args": self.module_args["photographer"]},
-            "fuser": {"type": type(fuser).__name__,
-                      "args": {"in_channels": getattr(fuser, "in_channels", None),
-                               "cube_size": getattr(fuser, "cube_size", 1.0)}},
-        }
-        if self.discriminator is not None:
-            entries["discriminator"] = {"args": self.module_args["discriminator"]}
-        return entries
+        names = ("sculptor", "photographer") + (
+            ("discriminator",) if self.discriminator is not None else ())
+        return ckpt.reference_entries({k: self.module_args[k] for k in names}, self.fuser)
+
+    def _run_args(self) -> Dict[str, Any]:
+        return {"camera_dist": self.camera_dist, **{
+            k: v for k, v in self.kwargs.items()
+            if isinstance(v, (int, float, str, bool, type(None)))}}
 
     def create_checkpoint(self) -> Dict[str, Any]:
         modules = self._module_entries()
         for name, module in self._modules().items():
             modules[name]["params"] = module_params(name, module)
-        return {
-            "args": {"camera_dist": self.camera_dist, **{
-                k: v for k, v in self.kwargs.items()
-                if isinstance(v, (int, float, str, bool, type(None)))}},
-            "modules": modules,
-        }
+        return {"args": self._run_args(), "modules": modules}
 
     def export_torch_checkpoint(self, path):
         """Write the reference-format ``.pth``: each module's ``args`` and
         ``state_dict`` (on the CPU). Every rank calls it; rank 0 writes."""
-        payload = self.create_checkpoint()
-        payload.update({"name": self.name, "epoch": self.epoch, "meter_hists": {}})
-        for name, module in self._modules().items():
-            entry = payload["modules"][name]
-            entry.pop("params")
-            entry["state_dict"] = {k: v.detach().cpu().clone()
-                                   for k, v in parallel.full_state_dict(module).items()}
+        state_dicts = {name: parallel.full_state_dict(module)
+                       for name, module in self._modules().items()}
         if self.rank == 0:
-            torch.save(payload, path)
+            ckpt.save_reference_checkpoint(path, self._module_entries(), state_dicts,
+                                           name=self.name, epoch=self.epoch,
+                                           args=self._run_args())
 
 
 class IBRTrainer(ReconTrainer):

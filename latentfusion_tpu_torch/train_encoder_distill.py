@@ -11,11 +11,13 @@ full-frame depth terms. Adam (0.9, 0.99) on a cosine decay to 1 % over
 ``--steps``.
 
     python -m latentfusion_tpu_torch.train_encoder_distill --steps 20000 \\
-        --out DIR [--snapshot-steps 5000,10000] [--device cpu]
+        --out DIR [--snapshot-steps 5000,10000] [--coarse-config slow] [--device cpu]
 
 Writes ``encoder_distill.npz`` and ``encoder_distill_keys.json`` (the JAX
 tool's leaf order and paths: its ``--skip-train`` and this package's
-loaders read them), ``history.json``, ``pose_eval.json`` and, with
+loaders read them), after training the reference-schema ``checkpoint.pth``
+(a failed export raises, where the JAX tool prints and carries on),
+``history.json``, ``pose_eval.json`` and, with
 snapshots, ``scaling_curve.json``. The cameras come from a
 ``torch.Generator`` on the device (the JAX tool's from ``jax.random``).
 """
@@ -65,9 +67,16 @@ def get_args(argv=None):
                              "evaluate (scaling curve)")
     parser.add_argument("--curve-targets", type=int, default=6,
                         help="eval targets per snapshot on the curve")
-    parser.add_argument("--cem-samples", type=int, default=128)
-    parser.add_argument("--cem-iters", type=int, default=10)
-    parser.add_argument("--cem-elites", type=int, default=48)
+    parser.add_argument("--coarse-config", default="quick", choices=["quick", "slow"],
+                        help="reference cross_entropy_{quick,slow}.toml coarse-search "
+                             "budget/semantics")
+    parser.add_argument("--cem-samples", type=int, default=None,
+                        help="CEM hypotheses an iteration (default: the coarse config's, "
+                             "128 quick, 200 slow)")
+    parser.add_argument("--cem-iters", type=int, default=None,
+                        help="CEM iterations (default: the coarse config's, 10 or 30)")
+    parser.add_argument("--cem-elites", type=int, default=None,
+                        help="CEM elites (default: the coarse config's, 48 or 64)")
     parser.add_argument("--refine-samples", type=int, default=16)
     parser.add_argument("--refine-iters", type=int, default=150)
     parser.add_argument("--device", default="cuda", help="default the card")
@@ -95,11 +104,19 @@ def distill_terms(photographer, z_obj, cam, cam_full, o_depth, o_mask, target,
     oracle's (V, 1, S, S) depth and mask, plus ``frame_loss_weight`` x (the
     full-frame depth loss + 0.3 x its overlap term) against ``target``.
     Returns (loss, {depth_l1, mask_bce, frame_depth})."""
-    from .pose import estimation
     from .recon import models
 
     y, _, _ = models.decode(photographer, z_obj, cam)
-    pred_depth, pred_mask_logits = y["depth"][0].float(), y["mask_logits"][0].float()
+    return prediction_terms(y["depth"][0], y["mask_logits"][0], cam, o_depth, o_mask, target,
+                            frame_loss_weight)
+
+
+def prediction_terms(pred_depth, pred_mask_logits, cam, o_depth, o_mask, target,
+                     frame_loss_weight: float):
+    """``distill_terms`` of a decode's (V, 1, S, S) depth and mask logits."""
+    from .pose import estimation
+
+    pred_depth, pred_mask_logits = pred_depth.float(), pred_mask_logits.float()
     depth_l1 = (pred_depth - o_depth).abs().mean()
     mask_bce = estimation._bce_with_logits(pred_mask_logits, o_mask).mean()
     loss = DEPTH_WEIGHT * depth_l1 + MASK_WEIGHT * mask_bce
@@ -166,6 +183,20 @@ def save_params(modules, out: Path, stem: str, keys: bool = True) -> None:
                          out / f"{stem}_keys.json" if keys else None)
 
 
+def write_pth(modules, path: Path, input_depth: bool = True) -> None:
+    """The reference-schema ``checkpoint.pth`` of the demo family, which both
+    packages' ``LatentFusionModel.from_checkpoint`` read. A failed write
+    raises."""
+    from . import zoo
+    from .recon import checkpoint as ckpt
+
+    ckpt.save_reference_checkpoint(
+        path, ckpt.reference_entries(zoo.demo_module_args(input_depth), modules["fuser"]),
+        {name: m.state_dict() for name, m in modules.items()}, name="encoder_distill",
+        args={"camera_dist": CAMERA_DIST})
+    log(f"# wrote {path}")
+
+
 def load_params(modules, path, keys_json) -> None:
     from .recon import checkpoint as ckpt
 
@@ -189,9 +220,16 @@ def snapshot(modules) -> dict:
 
 
 def budget_of(args) -> dict:
-    return {"cem_samples": args.cem_samples, "cem_iters": args.cem_iters,
-            "cem_elites": args.cem_elites, "refine_samples": args.refine_samples,
-            "refine_iters": args.refine_iters}
+    """The search budget: ``--cem-*`` where given, else ``--coarse-config``'s."""
+    from .unseen_eval import COARSE_CONFIGS
+
+    preset = COARSE_CONFIGS[args.coarse_config]
+    pick = {"cem_samples": (args.cem_samples, preset["num_samples"]),
+            "cem_iters": (args.cem_iters, preset["num_iters"]),
+            "cem_elites": (args.cem_elites, preset["num_elites"])}
+    return {**{k: preset_value if given is None else given
+               for k, (given, preset_value) in pick.items()},
+            "refine_samples": args.refine_samples, "refine_iters": args.refine_iters}
 
 
 def evaluate(modules, state, oracle, args, n_targets, device, tag=""):
@@ -217,7 +255,8 @@ def evaluate(modules, state, oracle, args, n_targets, device, tag=""):
     points = orientation.evenly_distributed_points(512).to(device) * torch.tensor(
         AXES, device=device)
     return unseen_eval.evaluate_object(model, ref_obs, targets, points, budget_of(args),
-                                       diameter=DIAMETER, tag=tag, generator=g)
+                                       diameter=DIAMETER, tag=tag, generator=g,
+                                       coarse_config=args.coarse_config)
 
 
 def curve_row(step: int, rows, acc) -> dict:
@@ -266,6 +305,7 @@ def main(argv=None) -> dict:
                 log(f"step {i}: loss={float(loss):.4f} ({i / (time.time() - t0):.1f} steps/s)")
         (args.out / "history.json").write_text(json.dumps(history))
         save_params(modules, args.out, "encoder_distill")
+        write_pth(modules, args.out / "checkpoint.pth", args.input_depth)
     else:
         load_params(modules, args.out / "encoder_distill.npz",
                     args.out / "encoder_distill_keys.json")

@@ -67,17 +67,28 @@ def extra_weights_from_args(args) -> dict:
                               ("iou", args.rank_iou_weight)) if w > 0.0}
 
 
-def build_estimators(model, budget: dict, extra_weights=None):
-    """The rig's coarse and fine stack: CEM at ``cross_entropy_quick``'s
-    settings and gradient refinement at ``adam_slow``'s, sized by
-    ``budget``."""
+# The reference's cross_entropy_{quick,slow}.toml budgets and semantics, as
+# the JAX rigs spell them (tools/train_encoder_distill.py:289-297).
+COARSE_CONFIGS = {
+    "quick": {"num_samples": 128, "num_iters": 10, "num_elites": 48, "learning_rate": 0.75,
+              "loss_weights": {"depth": 1.0}, "ranking_size": 16},
+    "slow": {"num_samples": 200, "num_iters": 30, "num_elites": 64, "learning_rate": 0.3,
+             "loss_weights": {"depth": 1.0, "ov_depth": 0.2}, "ranking_size": 64},
+}
+
+
+def build_estimators(model, budget: dict, extra_weights=None, coarse_config: str = "quick"):
+    """The rig's coarse and fine stack: CEM at ``COARSE_CONFIGS[coarse_config]``'s
+    learning rate, loss weights and ranking and gradient refinement at
+    ``adam_slow``'s, sized by ``budget``."""
     extra_weights = dict(extra_weights or {})
+    preset = COARSE_CONFIGS[coarse_config]
     coarse = estimation.CrossEntropyPoseEstimator(
         model=model, num_gmm_components=6, sample_flipped=True,
         num_samples=budget["cem_samples"], num_iters=budget["cem_iters"],
-        num_elites=budget["cem_elites"], learning_rate=0.75,
-        loss_weights={"depth": 1.0, **extra_weights},
-        ranking_size=min(16, budget["cem_samples"]))
+        num_elites=budget["cem_elites"], learning_rate=preset["learning_rate"],
+        loss_weights={**preset["loss_weights"], **extra_weights},
+        ranking_size=min(preset["ranking_size"], budget["cem_samples"]))
     fine = estimation.GradientPoseEstimator(
         model=model, ranking_size=min(8, budget["refine_samples"]),
         loss_weights={"depth": 1.0, "ov_depth": 0.3, **extra_weights},
@@ -125,7 +136,8 @@ def _say_row(tag, row) -> None:
 
 
 def evaluate_object(model, ref_obs, targets, points, budget, extra_weights=None,
-                    diameter: float = DIAMETER, tag: str = "", generator=None, draws=None):
+                    diameter: float = DIAMETER, tag: str = "", generator=None, draws=None,
+                    coarse_config: str = "quick"):
     """Estimate each target of one object and gate it at ADD-S < 0.1
     ``diameter``. ``targets``: a list of (ground-truth camera, target
     Observation); ``points``: the object's surface points (P, 3). The CEM
@@ -133,7 +145,7 @@ def evaluate_object(model, ref_obs, targets, points, budget, extra_weights=None,
     CEM another implementation's random stream (the estimator's
     ``draws=``). Returns (one row per target, the share within 0.1d)."""
     z_obj = model.build_latent_object(ref_obs)
-    coarse, fine = build_estimators(model, budget, extra_weights)
+    coarse, fine = build_estimators(model, budget, extra_weights, coarse_config)
     points = torch.as_tensor(points, device=model.device)
     rows = []
     for t, (gt_cam, target) in enumerate(targets):

@@ -114,6 +114,26 @@ def demo_fuser(device="cuda", generator=None) -> GRUFuser:
     return _place(GRUFuser(in_channels=128, cube_size=1.0), device, generator)
 
 
+def demo_module_args(input_depth: bool = True) -> dict:
+    """The demo family's Sculptor and Photographer arguments as the JAX
+    modules' ``checkpoint_args()`` record them (a reference ``.pth``'s
+    ``args``)."""
+    common = {"relu_slope": 0.2, "cube_size": 1.0, "projection_type": "factor",
+              "scale_mode": "nearest"}
+    return {
+        "sculptor": {"in_size": DEMO_INPUT_SIZE, "image_config": DEMO_SCULPTOR_IMAGE_CONFIG,
+                     "camera_config": DEMO_SCULPTOR_CAMERA_CONFIG,
+                     "object_config": DEMO_SCULPTOR_OBJECT_CONFIG,
+                     "cube_activation_type": None, "input_color": True,
+                     "input_depth": input_depth, "input_mask": True, **common},
+        "photographer": {"image_config": DEMO_PHOTOGRAPHER_IMAGE_CONFIG,
+                         "camera_config": DEMO_PHOTOGRAPHER_CAMERA_CONFIG,
+                         "occlusion_config": False, "object_config": None, "in_views": 1,
+                         "in_size": DEMO_INPUT_SIZE // 16, "skip_connections": False,
+                         "predict_color": False, "predict_depth": True, "predict_mask": True,
+                         **common}}
+
+
 MID_INPUT_SIZE = 128
 
 

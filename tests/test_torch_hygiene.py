@@ -107,7 +107,10 @@ def test_port_imports_no_jax():
             "latentfusion_tpu_torch/profile_decode.py",
             "latentfusion_tpu_torch/bench_sampler.py",
             "latentfusion_tpu_torch/bench_fuser.py",
-            "latentfusion_tpu_torch/bench_loader.py"} <= names
+            "latentfusion_tpu_torch/bench_loader.py",
+            "latentfusion_tpu_torch/train_oracle_distill.py",
+            "latentfusion_tpu_torch/train_cube_demo.py",
+            "latentfusion_tpu_torch/trained_pose_experiment.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -363,13 +366,93 @@ def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
             main(argv)
 
 
+def test_experiment_tools_raise_without_gpu_and_take_the_cpu(no_gpu, tmp_path):
+    """The experiment tools run on the GPU unless given --device cpu, and
+    raise before they write anything."""
+    from latentfusion_tpu_torch import train_cube_demo, train_oracle_distill, trained_pose_experiment
+
+    for main, argv in ((train_oracle_distill.main, ["--out", str(tmp_path / "o")]),
+                       (train_cube_demo.main, ["--out", str(tmp_path / "c")]),
+                       (trained_pose_experiment.main, [])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    assert list(tmp_path.iterdir()) == []
+    for tool in (train_oracle_distill, train_cube_demo):
+        assert tool.get_args(["--out", "x", "--device", "cpu"]).device == "cpu"
+        assert tool.get_args(["--out", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trained_pose_experiment.run("cuda", 0)
+    model = train_oracle_distill.decoder_model(zoo.demo_photographer(device="cpu"), "cpu")
+    assert model.input_size == train_oracle_distill.INPUT_SIZE and model.device.type == "cpu"
+
+
+def test_skip_train_writes_only_under_out(tmp_path, monkeypatch):
+    """``train_oracle_distill --skip-train`` reads and writes under its
+    ``--out`` alone: the committed record is untouched and nothing lands in
+    the working directory."""
+    import hashlib
+    import shutil
+
+    from latentfusion_tpu_torch import train_oracle_distill
+
+    record = ROOT / "artifacts" / "oracle_distill"
+
+    def digest():
+        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in sorted(record.iterdir())}
+
+    before = digest()
+    out, cwd = tmp_path / "out", tmp_path / "cwd"
+    out.mkdir()
+    cwd.mkdir()
+    for name in ("distilled.npz", "distilled_keys.json"):
+        shutil.copy(record / name, out / name)
+    monkeypatch.chdir(cwd)
+    monkeypatch.setitem(train_oracle_distill.FINE, "num_iters", 2)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train_oracle_distill.main(["--skip-train", "--out", str(out), "--eval-targets", "1",
+                                   "--coarse-samples", "8", "--coarse-iters", "2",
+                                   "--device", "cpu"])
+    finally:
+        torch.set_num_threads(prev)
+    assert sorted(p.name for p in out.iterdir()) == [
+        "distilled.npz", "distilled_keys.json", "pose_eval.json"]
+    assert list(cwd.iterdir()) == []
+    assert digest() == before
+
+
+def test_encoder_distill_pth_export_raises_on_a_failed_write(tmp_path, monkeypatch):
+    """A failed ``checkpoint.pth`` export ends the run (the JAX tool prints
+    and carries on)."""
+    from latentfusion_tpu_torch import train_encoder_distill
+
+    def refuse(obj, path, *args, **kwargs):
+        raise OSError(f"cannot write {path}")
+
+    monkeypatch.setattr(torch, "save", refuse)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.raises(OSError, match="checkpoint.pth"):
+            train_encoder_distill.main(["--steps", "1", "--views-in", "1", "--views-out", "1",
+                                        "--out", str(tmp_path), "--device", "cpu"])
+    finally:
+        torch.set_num_threads(prev)
+    assert (tmp_path / "encoder_distill.npz").exists()
+    assert not (tmp_path / "pose_eval.json").exists()
+
+
 def test_training_tools_need_out(capsys):
     """The rigs' training tools have no default --out, so a run from the
     repo root cannot overwrite the committed artifacts/ checkpoints."""
-    from latentfusion_tpu_torch import (train_encoder_distill, train_unseen_objects,
+    from latentfusion_tpu_torch import (train_cube_demo, train_encoder_distill,
+                                        train_oracle_distill, train_unseen_objects,
                                         train_unseen_real)
 
-    for tool in (train_encoder_distill, train_unseen_objects, train_unseen_real):
+    for tool in (train_encoder_distill, train_unseen_objects, train_unseen_real,
+                 train_oracle_distill, train_cube_demo):
         with pytest.raises(SystemExit):
             tool.get_args([])
         assert "--out" in capsys.readouterr().err
